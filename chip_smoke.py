@@ -1,0 +1,532 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of the triad census on one GPU.
+
+    python3 chip_smoke.py              # on a machine with a CUDA card
+
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
+(``nvcc``, into ``build/`` at first use), then:
+
+1. prints the card (``nvidia-smi`` name and power limit), the torch and
+   CUDA versions and the kernel build time;
+2. holds every kernel against its plain torch version on the card, at the
+   shapes of the main path (the first descriptor window of a
+   patents-sized graph), bit for bit (``torch.equal``), and times kernel,
+   plain version and — where one PyTorch call computes the same function
+   — that library call, by CUDA events with the L2 flushed before each
+   call (and the kernel once more with the L2 warm);
+3. runs the main path at real size: ``CensusEngine(backend="fused")
+   .run(g, max_items=2**24)`` with device emission on a graph the size of
+   the US-patents citation graph (3,774,768 nodes, ~15.5M arcs), for both
+   orient modes, under ``torch.profiler``, and holds each census to the
+   plain torch engine on the card and to C(n, 3); the desc kernel must
+   launch once per window, by its counter and in the trace, which also
+   gives the host ranges, the kernel time and the device's idle share;
+4. runs a hub-heavy graph (Orkut-like, max degree ~28k) the same way;
+5. runs the small oracle workloads through every backend × orient × emit
+   against the serial Batagelj–Mrvar census.
+
+Any mismatch raises, so the exit code is non-zero.  The line before the
+last is the per-kernel JSON record; the last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
+with an error before any result.
+
+``--rehearse`` runs the same phases on the CPU at toy sizes through the
+plain versions (no build, no device numbers) and never prints a result;
+it checks the script's own control flow before a run on the card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+#: H100 SXM peaks from NVIDIA's data sheet: HBM3 bytes/s, and the
+#: non-tensor-core (CUDA core) rate used for the int32 operation bound
+HBM_BYTES_PER_S = 3.35e12
+CUDA_CORE_OPS_PER_S = 67e12
+
+#: the main-path graph: US-patents scale (the paper's smallest real graph)
+PATENTS = dict(n=3_774_768, avg_degree=4.38, exponent=3.126, mutual_p=0.0,
+               preferential=False, seed=0)
+#: the hub-heavy graph: paper_workload("orkut", n, avg_degree)
+HUB = dict(n=50_000, avg_degree=20.0)
+#: the oracle workloads (name -> (n, avg_degree)), as the JAX package's
+#: tests/test_census_fused.py SMALL_SIZES
+SMALL_SIZES = {"patents": (600, 3.0), "orkut": (250, 12.0),
+               "webgraph": (400, 6.0)}
+MAX_ITEMS = 2**24
+#: clock cycles of the spin kernel queued before each timed call (~1 ms)
+SPIN_CYCLES = 2_000_000
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke FAILED: {msg}")
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def timed_ms(fn, device, reps: int, flush=None) -> float:
+    """Median milliseconds of one call of ``fn()`` over ``reps`` calls,
+    each between two CUDA events (the host clock on the CPU, rehearsal
+    only), after one warm-up call.  With ``flush`` (a tensor larger than
+    the 50 MB L2) the tensor is overwritten before each call, so ``fn``
+    finds its inputs in HBM as each window of the main path does.  A spin
+    kernel queued ahead of the first event keeps the card busy while the
+    host enqueues the call, so the events hold device time only, not the
+    wrapper's host-side checks."""
+    import torch
+    fn()
+    per_call = []
+    for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+        if device.type == "cuda":
+            torch.cuda._sleep(SPIN_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            per_call.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            per_call.append((time.perf_counter() - t0) * 1e3)
+    per_call.sort()
+    return per_call[len(per_call) // 2]
+
+
+def ceil_log2_plus1(x):
+    """ceil(log2(x + 1)) per element: the probes a lower-bound search
+    over a range of x candidates makes."""
+    import torch
+    return torch.ceil(torch.log2(x.to(torch.float64) + 1.0))
+
+
+def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    """Least time for the work: max(bytes / HBM rate, ops / core rate)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def header(device) -> None:
+    import torch
+    if device.type == "cuda":
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip()
+        log(smi)           # the card's name and power limit, verbatim
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+
+
+def build_kernels() -> float:
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    lib = build.build()
+    seconds = time.perf_counter() - t0
+    build.load_library()
+    log(f"kernels built in {seconds:.3f} s -> {lib}")
+    for line in (lib.parent / "build.log").read_text().splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            log(f"  ptxas: {line.strip()}")
+    return seconds
+
+
+def graph_tensors(chunker, device):
+    import torch
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in chunker.device_arrays())
+
+
+def max_abs_err(got, want) -> int:
+    return max(int((a.long() - b.long()).abs().max())
+               for a, b in zip(got, want))
+
+
+def graph_words_read(indptr, pair_u, pair_v, pairs) -> int:
+    """int32 words of the resident graph that a window over ``pairs``
+    (unique pair ids) must read: each pair's u, v and code; ``indptr`` at
+    both ends of both endpoints' rows; and the rows themselves, whose
+    entries are the witnesses and hold the searched neighbours."""
+    import torch
+    pu, pv = pair_u[pairs].long(), pair_v[pairs].long()
+    ends = torch.unique(torch.cat([pu, pv]))
+    indptr_words = torch.unique(torch.cat([ends, ends + 1])).numel()
+    row_words = int((indptr[ends + 1] - indptr[ends]).sum())
+    return 3 * pairs.numel() + indptr_words + row_words
+
+
+def kernel_phase(g, device, max_items: int, reps: int) -> list[dict]:
+    """Each kernel against its plain version at main-path shapes: the
+    first descriptor window of the main graph (orient "none")."""
+    import torch
+    from repro_torch import PlanChunker
+    from repro_torch.core import census
+    from repro_torch.core.planner import split_device_words
+    from repro_torch.kernels import ops
+
+    chunker = PlanChunker(g, max_items)
+    space = chunker.space
+    graph = graph_tensors(chunker, device)
+    indptr, packed, pair_u, pair_v, pair_code = graph
+    idx = torch.arange(chunker.chunk_shape, dtype=torch.int32,
+                       device=device)
+    words = torch.from_numpy(chunker.descriptors(0).device_words()).to(
+        device)
+    nv, dp, dc, dw, an = split_device_words(words, chunker.num_anchors)
+    iters = (space.search_iters, chunker.desc_iters)
+    lanes = chunker.chunk_shape
+    # overwritten before each cold launch: 128 MB, past the 50 MB L2
+    flush = torch.empty(2**25 if device.type == "cuda" else 1,
+                        dtype=torch.int32, device=device)
+    log(f"kernel shapes: window 0 of {chunker.num_chunks}, lanes {lanes}, "
+        f"desc_shape {chunker.desc_shape}, anchors {chunker.num_anchors}, "
+        f"search_iters {space.search_iters}")
+    records = []
+
+    def timings(kernel, plain, library=None) -> dict:
+        """Kernel, plain and library ms with L2 flushed before each call
+        (the main path's case), and the kernel's warm-L2 ms."""
+        return dict(
+            ms=timed_ms(kernel, device, reps, flush),
+            plain_ms=timed_ms(plain, device, max(3, reps // 10), flush),
+            library_ms=(None if library is None
+                        else timed_ms(library, device, reps, flush)),
+            warm_ms=timed_ms(kernel, device, reps))
+
+    # data-dependent work of window 0: per valid lane, the probes of the
+    # anchored descriptor search and of the row search
+    pair, slot, side, valid = census.expand_work_items(
+        indptr, pair_u, pair_v, dp, dc, dw, an, nv, idx, iters[1])
+    other = torch.where(side == 0, pair_v[pair], pair_u[pair])
+    row_probes = ceil_log2_plus1(indptr[other + 1] - indptr[other])[valid]
+    a = (idx // 16).clamp(0, an.shape[0] - 1)
+    lo_d = an[a]
+    hi_d = (lo_d + 17).clamp(max=dp.shape[0])
+    desc_probes = ceil_log2_plus1(hi_d - lo_d)[valid]
+    n_valid = int(valid.sum())
+    row_total = float(row_probes.sum())
+    desc_total = float(desc_probes.sum())
+
+    # 1. fused desc kernel (the main path's kernel)
+    def desc_kernel():
+        return ops.fused_census_desc_partials(
+            *graph, dp, dc, dw, an, nv, idx, *iters, "none", True)
+
+    def desc_plain():
+        return ops.fused_census_desc_partials_ref(
+            *graph, dp, dc, dw, an, nv, idx, *iters, "none", True)
+
+    got, want = desc_kernel(), desc_plain()
+    err = max_abs_err(got, want)
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            f"fused desc kernel != plain version: {got} vs {want}")
+    # words read: idx, num_valid, the anchors and the descriptors (one
+    # per pair in a window) the valid lanes use, the graph words of the
+    # window's pairs; then the 67 output words
+    pairs = torch.unique(pair[valid])
+    nwords = (lanes + 1 + torch.unique(a[valid]).numel() + 3 * pairs.numel()
+              + graph_words_read(indptr, pair_u, pair_v, pairs) + 67)
+    b, by = bound_ms(4 * nwords, row_total + desc_total + n_valid)
+    records.append(dict(
+        name="fused_census_desc_partials", route="cuda",
+        source="src/repro_torch/kernels/csrc/census_fused.cu",
+        replaces="src/repro/kernels/census_fused.py:187",
+        launches=0, max_abs_err=err, **timings(desc_kernel, desc_plain),
+        bound_ms=b, bound_by=by, bound_bytes=4 * nwords,
+        lanes=lanes, valid_lanes=n_valid))
+
+    # 2. fused host-item kernel, on the same window emitted as host items
+    chunk = chunker.chunk(0)
+    sp = torch.from_numpy(chunk.item_sp).to(device)
+    pv = torch.from_numpy(chunk.item_pv).to(device)
+    item_slot, item_side = sp >> 1, sp & 1
+    item_pair, item_valid = pv >> 1, (pv & 1) == 1
+    other_h = torch.where(item_side == 0, pair_v[item_pair],
+                          pair_u[item_pair])
+    probes_h = float(ceil_log2_plus1(
+        indptr[other_h + 1] - indptr[other_h])[item_valid].sum())
+    n_items = int(item_valid.sum())
+
+    def items_kernel():
+        return ops.fused_census_partials(*graph, sp, pv, iters[0])
+
+    def items_plain():
+        return ops.fused_census_partials_ref(*graph, sp, pv, iters[0])
+
+    got, want = items_kernel(), items_plain()
+    err = max_abs_err(got, want)
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            f"fused item kernel != plain version: {got} vs {want}")
+    # words read: every item_pv word, item_sp of the valid items, the
+    # graph words of their pairs; then the 67 output words
+    nwords = (sp.numel() + n_items + graph_words_read(
+        indptr, pair_u, pair_v, torch.unique(item_pair[item_valid])) + 67)
+    b, by = bound_ms(4 * nwords, probes_h + n_items)
+    records.append(dict(
+        name="fused_census_partials", route="cuda",
+        source="src/repro_torch/kernels/csrc/census_fused.cu",
+        replaces="src/repro/kernels/census_fused.py:150",
+        launches=0, max_abs_err=err, **timings(items_kernel, items_plain),
+        bound_ms=b, bound_by=by, bound_bytes=4 * nwords,
+        lanes=int(sp.numel()), valid_lanes=n_items))
+
+    # 3. histogram kernel, on window 0's classified tricodes
+    tricode, count_mask, _, _ = census.classify_items(
+        *graph, pair, slot, side, valid, iters[0])
+    tricode = tricode.contiguous()
+
+    def hist_kernel():
+        return ops.tricode_histogram(tricode, count_mask)
+
+    def hist_plain():
+        return ops.tricode_histogram_ref(
+            torch.where(count_mask, tricode, 64))
+
+    def hist_library():
+        return torch.bincount(torch.where(count_mask, tricode, 64),
+                              minlength=65)[:64]
+
+    got, want, lib = hist_kernel(), hist_plain(), hist_library()
+    err = max_abs_err([got], [want])
+    require(torch.equal(got, want), "histogram kernel != plain version")
+    require(torch.equal(got.long(), lib), "histogram kernel != bincount")
+    w = tricode.numel()
+    b, by = bound_ms(5 * w + 4 * 64, w)
+    records.append(dict(
+        name="tricode_histogram", route="cuda",
+        source="src/repro_torch/kernels/csrc/tricode_hist.cu",
+        replaces="src/repro/kernels/tricode_hist.py:41",
+        launches=0, max_abs_err=err,
+        **timings(hist_kernel, hist_plain, hist_library),
+        bound_ms=b, bound_by=by, bound_bytes=5 * w + 4 * 64,
+        lanes=w, valid_lanes=int(count_mask.sum())))
+    for r in records:
+        log(f"kernel {r['name']}: ms {r['ms']:.4f} (L2 flushed) warm_ms "
+            f"{r['warm_ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
+            f"{r['library_ms']} bound_ms {r['bound_ms']:.4f} ({r['bound_by']}"
+            f", {r['bound_bytes']} bytes) lanes {r['lanes']} valid "
+            f"{r['valid_lanes']}")
+    log("kernel fused_census_desc_partials and fused_census_partials have "
+        "no single PyTorch call that computes the same function: "
+        "library_ms null")
+    return records
+
+
+def census_run(g, device, backend: str, orient: str, max_items,
+               emit: str = "device"):
+    """One engine run; returns (census, stats, wall seconds)."""
+    import torch
+    from repro_torch import CensusEngine
+    engine = CensusEngine(device=device, backend=backend, emit=emit)
+    t0 = time.perf_counter()
+    census = engine.run(g, max_items=max_items, orient=orient)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return census, engine.stats, time.perf_counter() - t0
+
+
+def trace_split(prof, device) -> dict:
+    """Where a traced run's time went: the engine's host ranges
+    (``census.plan``, ``census.window``; seconds), and on the card the
+    desc kernel's launches and summed time and the time any device
+    activity (kernel, copy, memset) was running (ms, union of spans)."""
+    from torch.autograd import DeviceType
+    # a range appears twice, as a host event and as its device-side
+    # annotation: only the host event is host time, and only kernels,
+    # copies and memsets are device activity
+    host = {e.key: e.cpu_time_total / 1e6 for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU
+            and e.key in ("census.plan", "census.window")}
+    split = dict(plan_s=host.get("census.plan", 0.0),
+                 window_s=host.get("census.window", 0.0),
+                 kernel_launches=0, kernel_ms=None, busy_ms=None)
+    if device.type != "cuda":
+        return split
+    activity = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                and not e.name.startswith("census.")]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in activity)
+    kernels = [e for e in activity if "census_fused_desc" in e.name]
+    busy_us, reach = 0.0, float("-inf")
+    for lo, hi in spans:
+        busy_us += max(0.0, hi - max(lo, reach))
+        reach = max(reach, hi)
+    split.update(kernel_launches=len(kernels),
+                 kernel_ms=sum(e.time_range.elapsed_us()
+                               for e in kernels) / 1e3,
+                 busy_ms=busy_us / 1e3)
+    return split
+
+
+def held_run(label: str, g, device, orient: str, max_items: int,
+             w0: int) -> dict:
+    """Fused engine run, traced, held to the plain torch engine and to
+    C(n, 3); its desc-kernel launches must equal its window count, in the
+    wrapper's counter and in the trace."""
+    import torch
+    from repro_torch.kernels import ops
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    before = ops.fused_census_desc_partials.launches
+    with torch.profiler.profile(activities=activities) as prof:
+        census, st, wall = census_run(g, device, "fused", orient, max_items)
+    launches = ops.fused_census_desc_partials.launches - before
+    expect = st.chunks if device.type == "cuda" else 0
+    require(launches == expect,
+            f"{label}/{orient}: desc kernel launched {launches} times for "
+            f"{st.chunks} windows")
+    split = trace_split(prof, device)
+    require(split["kernel_launches"] == expect,
+            f"{label}/{orient}: the trace holds {split['kernel_launches']} "
+            f"desc kernels for {st.chunks} windows")
+    ref, _, ref_wall = census_run(g, device, "torch", orient, max_items)
+    require((census == ref).all(),
+            f"{label}/{orient}: fused {census.tolist()} != torch "
+            f"{ref.tolist()}")
+    total = g.n * (g.n - 1) * (g.n - 2) // 6
+    require(int(census.sum()) == total,
+            f"{label}/{orient}: census sums to {int(census.sum())}, "
+            f"not C(n,3)={total}")
+    log(f"{label} orient={orient}: windows {st.chunks} W0 {w0} items "
+        f"{st.items} desc_shape {st.desc_shape} wall {wall:.3f} s "
+        f"({w0 / wall:.4g} pre-prune lanes/s, {st.items / wall:.4g} "
+        f"items/s) desc launches {launches}; torch engine wall "
+        f"{ref_wall:.3f} s; census {census.tolist()}")
+    if device.type == "cuda":
+        device_part = (
+            f"desc kernel {split['kernel_ms']:.4f} ms over "
+            f"{split['kernel_launches']} launches "
+            f"({split['kernel_ms'] / st.chunks:.4f} ms per window), device "
+            f"busy {split['busy_ms']:.4f} ms = "
+            f"{split['busy_ms'] / 1e3 / wall:.4%} of the wall, idle "
+            f"{1 - split['busy_ms'] / 1e3 / wall:.4%}")
+    else:
+        device_part = "device not measured"
+    log(f"{label} orient={orient} trace: host plan {split['plan_s']:.3f} s, "
+        f"host windows {split['window_s']:.3f} s, {device_part}; engine "
+        f"wall {wall:.3f} s")
+    return dict(graph=label, orient=orient, windows=st.chunks, w0=w0,
+                items=st.items, wall_s=wall, torch_wall_s=ref_wall,
+                launches=launches, **split)
+
+
+def oracle_phase(device) -> dict:
+    """Small workloads × backends × orients × emits against the serial
+    Batagelj–Mrvar census; returns each kernel's launch count."""
+    import repro_torch as rt
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    runs = 0
+    for name, (n, deg) in SMALL_SIZES.items():
+        g = rt.paper_workload(name, n=n, avg_degree=deg, seed=0)
+        want = rt.census_batagelj_mrvar(g)
+        for backend in rt.BACKENDS:
+            for orient in ("none", "degree"):
+                for emit in rt.EMIT_MODES:
+                    for max_items in (None, 4096):
+                        got, _, _ = census_run(g, device, backend, orient,
+                                               max_items, emit)
+                        require((got == want).all(),
+                                f"oracle {name} {backend} {orient} {emit} "
+                                f"{max_items}: {got.tolist()} != "
+                                f"{want.tolist()}")
+                        runs += 1
+    counts = {fn.__name__: fn.launches for fn in (
+        ops.fused_census_desc_partials, ops.fused_census_partials,
+        ops.tricode_histogram)}
+    if device.type == "cuda":
+        for name, count in counts.items():
+            require(count > 0, f"oracle phase never launched {name}")
+    log(f"oracle phase: {runs} runs equal census_batagelj_mrvar; "
+        f"launches {counts}")
+    return counts
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--rehearse", action="store_true",
+                        help="toy sizes on the CPU, plain versions only; "
+                             "prints no result")
+    args = parser.parse_args(argv)
+    t_start = time.perf_counter()
+
+    import torch
+    if args.rehearse:
+        device = torch.device("cpu")
+        torch.set_num_threads(1)
+    else:
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke: no CUDA device; this script "
+                             "drives the port on the card")
+        device = torch.device("cuda", 0)
+    import repro_torch as rt
+    header(device)
+    if device.type == "cuda":
+        build_kernels()
+
+    main_cfg = dict(PATENTS)
+    hub_cfg = dict(HUB)
+    max_items = MAX_ITEMS
+    if args.rehearse:
+        max_items = 4096
+        main_cfg.update(n=5_000)
+        hub_cfg.update(n=600)
+    t0 = time.perf_counter()
+    g = rt.scale_free_digraph(**main_cfg)
+    log(f"main graph: n {g.n} arcs {g.num_arcs} csr {g.packed.shape[0]} "
+        f"max_degree {int(g.degrees.max())} built in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    records = kernel_phase(g, device, max_items,
+                           reps=20 if device.type == "cuda" else 2)
+
+    # the main path, both orients: launch counts from 0 just before it
+    from repro_torch.kernels import ops
+    w0 = rt.pair_space(g).num_items_preprune
+    ops.reset_launch_counts()
+    runs = [held_run("patents", g, device, orient, max_items, w0)
+            for orient in ("none", "degree")]
+    records[0]["launches"] = sum(r["launches"] for r in runs)
+    require(ops.fused_census_desc_partials.launches
+            == records[0]["launches"], "launches outside the engine runs")
+
+    hub = rt.paper_workload("orkut", hub_cfg["n"], hub_cfg["avg_degree"],
+                            seed=0)
+    log(f"hub graph: n {hub.n} csr {hub.packed.shape[0]} max_degree "
+        f"{int(hub.degrees.max())}")
+    ops.reset_launch_counts()
+    held_run("orkut-hub", hub, device, "degree", max_items,
+             rt.pair_space(hub).num_items_preprune)
+
+    counts = oracle_phase(device)
+    records[1]["launches"] = counts["fused_census_partials"]
+    records[2]["launches"] = counts["tricode_histogram"]
+
+    log(f"chip_smoke elapsed {time.perf_counter() - t_start:.3f} s")
+    if args.rehearse:
+        log("rehearsal complete: no device result")
+        return 3
+    print(json.dumps({"kernels": records}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,70 @@
+"""Parallel triad census in PyTorch, with hand-written CUDA kernels.
+
+The port of the JAX package ``repro`` to PyTorch and CUDA (NVIDIA
+Hopper, ``sm_90a``).  It imports neither JAX nor ``repro``; every module
+mirrors its counterpart there (``repro_torch.core.planner`` ↔
+``repro.core.planner``, ``repro_torch.kernels.ops`` ↔
+``repro.kernels.ops``, …) and is held to bit-identical censuses,
+partials and stats.
+
+Public API::
+
+    g = from_edges(src, dst, n)                 # paper Fig 7 structure
+    plan = build_plan(g)                        # manhattan-collapse plan
+    census = triad_census(plan, device="cpu")   # plain torch on the host
+
+    # stream bounded descriptor windows through the fused CUDA kernel
+    engine = CensusEngine()                     # device=None: the GPU
+    census = engine.run(g, max_items=2**24)
+    engine.stats                                # chunks, items, bytes
+
+Backends map one-to-one onto ``repro``'s:
+
+============  ================  =========================================
+``repro``     ``repro_torch``   what runs
+============  ================  =========================================
+``jnp``       ``torch``         plain torch (the oracle)
+``pallas``    ``hist``          torch classification + CUDA histogram
+``pallas-     ``fused``         one CUDA kernel per dispatch (default)
+fused``
+============  ================  =========================================
+
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``; with no CUDA device, ``device=None`` raises.  The
+kernels are built from ``kernels/csrc`` by ``nvcc`` at first CUDA use.
+"""
+
+from repro_torch.core.census import (
+    BACKENDS, assemble_census, assemble_counts, triad_census)
+from repro_torch.core.census_ref import (
+    census_batagelj_mrvar, census_bruteforce, census_dict)
+from repro_torch.core.digraph import (
+    CompactDigraph, canonical_pairs, from_dense, from_edges, from_pairs,
+    to_dense)
+from repro_torch.core.engine import EMIT_MODES, CensusEngine, EngineStats
+from repro_torch.core.generators import (
+    PAPER_WORKLOADS, erdos_renyi_digraph, paper_workload,
+    scale_free_digraph)
+from repro_torch.core.plan_stream import (
+    PlanChunk, PlanChunker, iter_plan_chunks)
+from repro_torch.core.planner import (
+    CensusPlan, DescriptorWindow, PairSpace, PlanOverflowError,
+    base_for_pairs, build_plan, descriptor_window, emit_items,
+    iter_descriptor_windows, pack_items, pair_space, unpack_items)
+from repro_torch.core.tricode import (
+    FOLD_64_TO_16, NUM_CLASSES, TRIAD_NAMES, TRICODE_TO_CLASS)
+
+__all__ = [
+    "BACKENDS", "assemble_census", "assemble_counts", "triad_census",
+    "census_batagelj_mrvar", "census_bruteforce", "census_dict",
+    "CompactDigraph", "canonical_pairs", "from_dense", "from_edges",
+    "from_pairs", "to_dense",
+    "EMIT_MODES", "CensusEngine", "EngineStats",
+    "PAPER_WORKLOADS", "erdos_renyi_digraph", "paper_workload",
+    "scale_free_digraph",
+    "PlanChunk", "PlanChunker", "iter_plan_chunks",
+    "CensusPlan", "DescriptorWindow", "PairSpace", "PlanOverflowError",
+    "base_for_pairs", "build_plan", "descriptor_window", "emit_items",
+    "iter_descriptor_windows", "pack_items", "pair_space", "unpack_items",
+    "FOLD_64_TO_16", "NUM_CLASSES", "TRIAD_NAMES", "TRICODE_TO_CLASS",
+]

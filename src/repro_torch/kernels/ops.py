@@ -1,0 +1,116 @@
+"""Public wrappers around the CUDA kernels.
+
+Each wrapper takes its plain torch version (:mod:`repro_torch.kernels.ref`)
+only when its tensors lie on the CPU.  On CUDA tensors it launches its
+kernel or raises — a missing ``nvcc``, a failed build or a refused launch
+is an error, never a fallback.  Each wrapper carries an integer
+``launches`` attribute that counts its kernel launches and nothing else.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import census_fused, ref, tricode_hist
+from repro_torch.kernels.census_fused import BLOCK_ITEMS, PACKED_PAD
+
+#: padding value for a flat-index array handed to the desc kernel:
+#: >= any possible valid-lane count (so padding lanes decode invalid) and
+#: small enough that ``idx + 1`` can never overflow int32
+IDX_PAD = 2**31 - 2
+
+tricode_histogram_ref = ref.tricode_histogram_ref
+fused_census_partials_ref = ref.fused_census_partials_ref
+fused_census_desc_partials_ref = ref.fused_census_desc_partials_ref
+
+__all__ = [
+    "BLOCK_ITEMS", "IDX_PAD", "PACKED_PAD", "fused_census_desc_partials",
+    "fused_census_desc_partials_ref", "fused_census_partials",
+    "fused_census_partials_ref", "reset_launch_counts",
+    "tricode_histogram", "tricode_histogram_ref",
+]
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU, False when every tensor
+    lies on one CUDA device; anything else raises."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors span several devices: "
+                         f"{sorted(map(str, devices))}")
+    device = devices.pop()
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device.type == "cpu"
+
+
+def tricode_histogram(tricode: torch.Tensor,
+                      mask: torch.Tensor) -> torch.Tensor:
+    """64-bin int32 histogram of ``tricode`` where ``mask`` is set.
+
+    Drop-in histogram for :func:`repro_torch.core.census.census_partials`
+    (backend ``"hist"``).
+    """
+    on_cpu = _on_cpu(tricode, mask)
+    masked = torch.where(mask, tricode, 64).to(torch.int32).contiguous()
+    if on_cpu:
+        return tricode_histogram_ref(masked)
+    out = tricode_hist.tricode_histogram_kernel(masked)
+    tricode_histogram.launches += 1
+    return out
+
+
+def fused_census_partials(indptr, packed, pair_u, pair_v, pair_code,
+                          item_sp, item_pv, search_iters: int):
+    """Fused single-pass census partials: ``(hist64 (64,), inter (2,))``.
+
+    Drop-in replacement for :func:`repro_torch.core.census
+    .census_partials` (backend ``"fused"``): gather, binary search,
+    classification and histogram in one kernel.  Zero item words are
+    padding and contribute nothing.
+    """
+    if _on_cpu(indptr, packed, pair_u, pair_v, pair_code, item_sp, item_pv):
+        return fused_census_partials_ref(indptr, packed, pair_u, pair_v,
+                                         pair_code, item_sp, item_pv,
+                                         search_iters)
+    out = census_fused.census_fused_kernel(indptr, packed, pair_u, pair_v,
+                                           pair_code, item_sp, item_pv)
+    fused_census_partials.launches += 1
+    return out[:64], out[64:66]
+
+
+def fused_census_desc_partials(indptr, packed, pair_u, pair_v, pair_code,
+                               desc_pair, desc_cum, desc_within0,
+                               anchors, num_valid, idx,
+                               search_iters: int, desc_iters: int,
+                               orient: str, prune_self: bool):
+    """Fused device-emission census partials: ``(hist64 (64,), inter (3,))``.
+
+    Drop-in replacement for :func:`repro_torch.core.census
+    .census_partials_desc` (backend ``"fused"``): descriptor expansion,
+    gather, binary search, classification and histogram in one kernel.
+    Lanes at or past ``num_valid`` (e.g. ``IDX_PAD``) are padding.  The
+    kernel searches to convergence, so ``search_iters``/``desc_iters``
+    only matter to the plain version.
+    """
+    if _on_cpu(indptr, packed, pair_u, pair_v, pair_code, desc_pair,
+               desc_cum, desc_within0, anchors, num_valid, idx):
+        return fused_census_desc_partials_ref(
+            indptr, packed, pair_u, pair_v, pair_code, desc_pair, desc_cum,
+            desc_within0, anchors, num_valid, idx, search_iters,
+            desc_iters, orient, prune_self)
+    out = census_fused.census_fused_desc_kernel(
+        indptr, packed, pair_u, pair_v, pair_code, desc_pair, desc_cum,
+        desc_within0, anchors, num_valid, idx, orient, prune_self)
+    fused_census_desc_partials.launches += 1
+    return out[:64], out[64:67]
+
+
+def reset_launch_counts() -> None:
+    """Set every wrapper's launch count to 0."""
+    for fn in (tricode_histogram, fused_census_partials,
+               fused_census_desc_partials):
+        fn.launches = 0
+
+
+reset_launch_counts()

@@ -1,0 +1,39 @@
+"""Plain torch versions of every CUDA kernel (the correctness contract).
+
+Each wrapper in :mod:`repro_torch.kernels.ops` runs its plain version
+when its tensors lie on the CPU; on the card the plain versions are what
+the kernels are held against.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.census import census_partials, census_partials_desc
+
+
+def tricode_histogram_ref(tricode_masked: torch.Tensor) -> torch.Tensor:
+    """64-bin int32 histogram; values outside [0, 64) are dropped."""
+    valid = (tricode_masked >= 0) & (tricode_masked < 64)
+    return torch.zeros(64, dtype=torch.int32,
+                       device=tricode_masked.device).index_add_(
+        0, torch.where(valid, tricode_masked, 0), valid.to(torch.int32))
+
+
+def fused_census_partials_ref(indptr, packed, pair_u, pair_v, pair_code,
+                              item_sp, item_pv, search_iters: int):
+    """``(hist64 (64,), inter (2,))`` int32 from packed host items."""
+    return census_partials(indptr, packed, pair_u, pair_v, pair_code,
+                           item_sp, item_pv, search_iters)
+
+
+def fused_census_desc_partials_ref(indptr, packed, pair_u, pair_v,
+                                   pair_code, desc_pair, desc_cum,
+                                   desc_within0, anchors, num_valid, idx,
+                                   search_iters: int, desc_iters: int,
+                                   orient: str, prune_self: bool):
+    """``(hist64 (64,), inter (3,))`` int32 from a descriptor window."""
+    return census_partials_desc(
+        indptr, packed, pair_u, pair_v, pair_code, desc_pair, desc_cum,
+        desc_within0, anchors, num_valid, idx, search_iters, desc_iters,
+        orient, prune_self)

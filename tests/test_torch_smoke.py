@@ -1,0 +1,45 @@
+"""``chip_smoke.py`` itself: its phases run end to end at toy size on the
+CPU (``--rehearse``), and it refuses to report a result without a card."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def run_smoke(*args, cwd=ROOT, script=ROOT / "chip_smoke.py"):
+    # the script finds the package beside itself, never through the
+    # caller's PYTHONPATH
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    return subprocess.run([sys.executable, str(script), *args], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_rehearsal_runs_every_phase_and_reports_nothing():
+    out = run_smoke("--rehearse")
+    assert out.returncode == 3, out.stderr[-2000:]
+    for phase in ("kernel fused_census_desc_partials", "kernel "
+                  "fused_census_partials", "kernel tricode_histogram",
+                  "patents orient=none", "patents orient=degree",
+                  "orkut-hub orient=degree", "oracle phase: 72 runs",
+                  "rehearsal complete"):
+        assert phase in out.stdout, phase
+    assert '"ok"' not in out.stdout
+
+
+def test_without_a_card_it_fails_before_any_result():
+    out = run_smoke()
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_alone_it_fails(tmp_path):
+    script = tmp_path / "chip_smoke.py"
+    script.write_text((ROOT / "chip_smoke.py").read_text())
+    out = run_smoke("--rehearse", cwd=tmp_path, script=script)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
