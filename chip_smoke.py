@@ -10,7 +10,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    CUDA versions and the kernel build time;
 2. holds every kernel against its plain torch version on the card, at the
    shapes of the main path (the first descriptor window of a
-   patents-sized graph), bit for bit (``torch.equal``), and times kernel,
+   patents-sized graph; for ``pair_codes``, tiles of that window's row
+   pairs), bit for bit (``torch.equal``), and times kernel,
    plain version and — where one PyTorch call computes the same function
    — that library call, by CUDA events with the L2 flushed before each
    call (and the kernel once more with the L2 warm);
@@ -22,8 +23,19 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    launch once per window, by its counter and in the trace, which also
    gives the host ranges, the kernel time and the device's idle share;
 4. runs a hub-heavy graph (Orkut-like, max degree ~28k) the same way;
-5. runs the small oracle workloads through every backend × orient × emit
-   against the serial Batagelj–Mrvar census.
+5. opens a resident session on the patents-size graph
+   (``CensusEngine(backend="fused").session(g, max_items=2**24)``), holds
+   its census to the main path's, and applies three seeded citation-stream
+   deltas (k = 1,000, 16,500 and 165,000 arcs deleted and as many added);
+   each updated census must equal a from-scratch fused census of the
+   edited graph and sum to C(n, 3), the first also a plain torch session
+   on the card, and each update must launch the desc kernel once per
+   dispatch; the first delta is repeated with ``orient="degree"``;
+6. drives the entry point ``pair_codes`` once on (B, 128) tiles cut from
+   the patents-size graph (row pairs of window 0);
+7. runs the small oracle workloads through every backend × orient × emit
+   against the serial Batagelj–Mrvar census, as one-shot runs and as
+   sessions over a short delta stream.
 
 Any mismatch raises, so the exit code is non-zero.  The line before the
 last is the per-kernel JSON record; the last line is
@@ -44,6 +56,8 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
@@ -62,6 +76,13 @@ HUB = dict(n=50_000, avg_degree=20.0)
 SMALL_SIZES = {"patents": (600, 3.0), "orkut": (250, 12.0),
                "webgraph": (400, 6.0)}
 MAX_ITEMS = 2**24
+#: arcs deleted and added by each delta of the session phase: ~0.006 %,
+#: 0.1 % and 1 % of the patents-size graph's arcs
+SESSION_DELTAS = (1_000, 16_500, 165_000)
+#: rows of the pair_codes tiles, and rows per plain-version block (its
+#: (rows, 128, 128) temporaries)
+PAIR_CODE_ROWS = 2**18
+PAIR_CODE_BLOCK = 8192
 #: clock cycles of the spin kernel queued before each timed call (~1 ms)
 SPIN_CYCLES = 2_000_000
 
@@ -315,16 +336,75 @@ def kernel_phase(g, device, max_items: int, reps: int) -> list[dict]:
         **timings(hist_kernel, hist_plain, hist_library),
         bound_ms=b, bound_by=by, bound_bytes=5 * w + 4 * 64,
         lanes=w, valid_lanes=int(count_mask.sum())))
+    # 4. pair_codes, on tiles of window 0's row pairs
+    q, k, kc = (torch.from_numpy(t).to(device)
+                for t in pair_code_tiles(g, chunker, PAIR_CODE_ROWS))
+    rows = q.shape[0]
+
+    def codes_kernel():
+        return ops.pair_codes(q, k, kc)
+
+    def codes_plain():
+        return torch.cat([
+            ops.pair_codes_ref(q[i:i + PAIR_CODE_BLOCK],
+                               k[i:i + PAIR_CODE_BLOCK],
+                               kc[i:i + PAIR_CODE_BLOCK])
+            for i in range(0, rows, PAIR_CODE_BLOCK)])
+
+    got, want = codes_kernel(), codes_plain()
+    err = max_abs_err([got], [want])
+    require(torch.equal(got, want), "pair_codes kernel != plain version")
+    nbytes = 4 * rows * 128 * 4
+    b, by = bound_ms(nbytes, rows * 128 * 128)
+    records.append(dict(
+        name="pair_codes", route="cuda",
+        source="src/repro_torch/kernels/csrc/pair_codes.cu",
+        replaces="src/repro/kernels/pair_codes.py:36",
+        launches=0, max_abs_err=err, **timings(codes_kernel, codes_plain),
+        bound_ms=b, bound_by=by, bound_bytes=nbytes,
+        lanes=rows * 128, valid_lanes=int((want != 0).sum())))
     for r in records:
         log(f"kernel {r['name']}: ms {r['ms']:.4f} (L2 flushed) warm_ms "
             f"{r['warm_ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
             f"{r['library_ms']} bound_ms {r['bound_ms']:.4f} ({r['bound_by']}"
             f", {r['bound_bytes']} bytes) lanes {r['lanes']} valid "
             f"{r['valid_lanes']}")
-    log("kernel fused_census_desc_partials and fused_census_partials have "
-        "no single PyTorch call that computes the same function: "
-        "library_ms null")
-    return records
+    log("kernel fused_census_desc_partials, fused_census_partials and "
+        "pair_codes have no single PyTorch call that computes the same "
+        "function: library_ms null")
+    log(f"kernel pair_codes tiles: {rows} row pairs of window 0 (valid "
+        f"lanes: queries that found their key)")
+    return records, (q, k, kc, want)
+
+
+def pair_code_tiles(g, chunker, rows: int):
+    """(q, k, kc) int32 (B, 128) tiles of the first ``rows`` canonical
+    pairs (u, v) of window 0 whose rows both have <= 128 entries: q is
+    N(v) padded with -1, k is N(u) padded with -2, kc is u's direction
+    codes (0 in the padding)."""
+    win = chunker.descriptors(0)
+    space = chunker.space
+    ids = win.desc_pair[:win.num_descs].astype(np.int64)
+    u, v = space.pair_u[ids], space.pair_v[ids]
+    fits = (space.deg[u] <= 128) & (space.deg[v] <= 128)
+    u, v = u[fits][:rows], v[fits][:rows]
+
+    def tiles(verts, pad):
+        starts = g.indptr[verts]
+        deg = g.indptr[verts + 1] - starts
+        row = np.repeat(np.arange(verts.shape[0]), deg)
+        col = np.arange(int(deg.sum())) - np.repeat(np.cumsum(deg) - deg,
+                                                    deg)
+        entry = g.packed[np.repeat(starts, deg) + col]
+        ids = np.full((verts.shape[0], 128), pad, dtype=np.int32)
+        codes = np.zeros((verts.shape[0], 128), dtype=np.int32)
+        ids[row, col] = entry >> 2
+        codes[row, col] = entry & 3
+        return ids, codes
+
+    q, _ = tiles(v, -1)
+    k, kc = tiles(u, -2)
+    return q, k, kc
 
 
 def census_run(g, device, backend: str, orient: str, max_items,
@@ -422,7 +502,149 @@ def held_run(label: str, g, device, orient: str, max_items: int,
         f"wall {wall:.3f} s")
     return dict(graph=label, orient=orient, windows=st.chunks, w0=w0,
                 items=st.items, wall_s=wall, torch_wall_s=ref_wall,
-                launches=launches, **split)
+                launches=launches, census=census, **split)
+
+
+def citation_delta(g, k: int, rng):
+    """One sliding re-count of a citation stream, as (add_src, add_dst,
+    del_src, del_dst): k arcs deleted, sampled from ``g``'s arcs, and k
+    added, each from a uniform source to the head of an existing arc
+    (cited patents get cited again)."""
+    out_arcs = np.flatnonzero(g.packed & 1)     # CSR entries u -> w
+    gone = rng.choice(out_arcs, k, replace=False)
+    heads = g.packed[rng.choice(out_arcs, k)] >> 2
+    tails = np.searchsorted(g.indptr, gone, side="right") - 1
+    return (rng.integers(0, g.n, k), heads, tails, g.packed[gone] >> 2)
+
+
+def session_phase(g, device, max_items: int, census_none, census_degree,
+                  ks, seed: int = 0) -> dict:
+    """Resident fused sessions on the main graph: census, then one update
+    per delta size, each held to a from-scratch fused census of the
+    edited graph and to C(n, 3); the first also to a plain torch session
+    on the card, and once more with ``orient="degree"``.  Each session
+    call must launch the desc kernel once per dispatch.  Returns the
+    session's desc-kernel launches and the per-update rows."""
+    import torch
+    from repro_torch import CensusEngine
+    from repro_torch.kernels import ops
+    cuda = device.type == "cuda"
+    total = g.n * (g.n - 1) * (g.n - 2) // 6
+    rng = np.random.default_rng(seed)
+    launches = 0
+
+    def held(label, session, call):
+        """Run one session call, timed to the card's completion; its
+        desc launches must equal its dispatches."""
+        nonlocal launches
+        before = ops.fused_census_desc_partials.launches
+        t0 = time.perf_counter()
+        census = call()
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        count = ops.fused_census_desc_partials.launches - before
+        require(count == (session.stats.chunks if cuda else 0),
+                f"session {label}: desc kernel launched {count} times for "
+                f"{session.stats.chunks} dispatches")
+        require(int(census.sum()) == total,
+                f"session {label}: census sums to {int(census.sum())}")
+        launches += count
+        return census, wall
+
+    def scratch(graph, orient):
+        census, st, wall = census_run(graph, device, "fused", orient,
+                                      max_items)
+        return census, wall
+
+    t0 = time.perf_counter()
+    s = CensusEngine(device=device, backend="fused").session(
+        g, orient="none", max_items=max_items)
+    open_s = time.perf_counter() - t0
+    c0, wall = held("census", s, s.census)
+    require((c0 == census_none).all(), "session census != main path")
+    log(f"session orient=none: opened in {open_s:.3f} s (chunk_shape "
+        f"{s.chunk_shape} desc_shape {s.desc_shape}), census windows "
+        f"{s.stats.chunks} items {s.stats.items} wall {wall:.3f} s")
+    rows, deltas = [], []
+    for k in ks:
+        delta = citation_delta(s.graph, k, rng)
+        deltas.append(delta)
+        got, wall = held(f"update k={k}", s, lambda: s.update(*delta))
+        st = s.stats
+        want, scratch_wall = scratch(s.graph, "none")
+        require((got == want).all(),
+                f"session update k={k}: {got.tolist()} != from-scratch "
+                f"{want.tolist()}")
+        rows.append(dict(k=k, touched=int(s.last_delta.touched.shape[0]),
+                         changed_pairs=int(s.last_delta.num_changed),
+                         affected_pairs=st.affected_pairs, items=st.items,
+                         full_items=st.full_items, chunks=st.chunks,
+                         wall_s=wall, host_pair_s=st.host_pair_seconds,
+                         host_merge_s=st.host_merge_seconds,
+                         host_emit_s=st.host_emit_seconds,
+                         scratch_wall_s=scratch_wall, census=got))
+        log(f"session update k={k}: touched {rows[-1]['touched']} "
+            f"vertices, changed pairs {rows[-1]['changed_pairs']}, "
+            f"affected pairs {st.affected_pairs}, items {st.items} of "
+            f"full_items {st.full_items} ({st.items / st.full_items:.4%}), "
+            f"dispatches {st.chunks}, update wall {wall:.4f} s (host pair "
+            f"{st.host_pair_seconds:.4f} s, merge "
+            f"{st.host_merge_seconds:.4f} s, emit "
+            f"{st.host_emit_seconds:.4f} s); from-scratch fused census "
+            f"wall {scratch_wall:.3f} s; equal")
+    s.close()
+
+    t = CensusEngine(device=device, backend="torch").session(
+        g, orient="none", max_items=max_items)
+    require((t.census() == c0).all(), "torch session census != fused")
+    got = t.update(*deltas[0])
+    require((got == rows[0]["census"]).all(),
+            f"torch session update k={ks[0]} != fused session")
+    t.close()
+    log(f"session update k={ks[0]}: plain torch session on the card equal")
+
+    d = CensusEngine(device=device, backend="fused").session(
+        g, orient="degree", max_items=max_items)
+    cd, _ = held("census degree", d, d.census)
+    require((cd == census_degree).all(),
+            "degree session census != main path")
+    got, wall = held("update degree", d, lambda: d.update(*deltas[0]))
+    st = d.stats
+    want, scratch_wall = scratch(d.graph, "degree")
+    require((got == want).all(), "degree session update != from-scratch")
+    require((got == rows[0]["census"]).all(),
+            "degree session update != orient none")
+    log(f"session orient=degree update k={ks[0]}: affected pairs "
+        f"{st.affected_pairs}, items {st.items} of full_items "
+        f"{st.full_items}, dispatches {st.chunks}, update wall "
+        f"{wall:.4f} s (host pair {st.host_pair_seconds:.4f} s, merge "
+        f"{st.host_merge_seconds:.4f} s, emit {st.host_emit_seconds:.4f} "
+        f"s); from-scratch wall {scratch_wall:.3f} s; equal")
+    d.close()
+    if cuda:
+        require(launches > 0, "the session phase launched no desc kernel")
+    log(f"session phase: desc launches {launches}")
+    return dict(launches=launches, rows=rows)
+
+
+def small_delta_stream(g, seed: int):
+    """An empty delta, a deletion-heavy one and one growing a row past
+    the largest degree, as (add_src, add_dst, del_src, del_dst)."""
+    import repro_torch as rt
+    rng = np.random.default_rng(seed)
+    empty = np.zeros(0, np.int64)
+    out = [(empty, empty, empty, empty)]
+    g, _ = rt.apply_delta(g, *out[-1])
+    src, dst = np.nonzero(rt.to_dense(g))
+    take = rng.random(src.shape[0]) < 0.4
+    out.append((rng.integers(0, g.n, 3), rng.integers(0, g.n, 3),
+                src[take], dst[take]))
+    g, _ = rt.apply_delta(g, *out[-1])
+    hub = int(rng.integers(0, g.n))
+    spokes = rng.choice(g.n, int(g.degrees.max()) + 3, replace=False)
+    out.append((np.full(spokes.shape[0], hub), spokes, empty, empty))
+    return out
 
 
 def oracle_phase(device) -> dict:
@@ -446,13 +668,38 @@ def oracle_phase(device) -> dict:
                                 f"{max_items}: {got.tolist()} != "
                                 f"{want.tolist()}")
                         runs += 1
+    sessions = 0
+    for name, (n, deg) in SMALL_SIZES.items():
+        g = rt.paper_workload(name, n=n, avg_degree=deg, seed=0)
+        stream = small_delta_stream(g, seed=1)
+        graphs = [g]
+        for delta in stream:
+            graphs.append(rt.apply_delta(graphs[-1], *delta)[0])
+        wants = [rt.census_batagelj_mrvar(h) for h in graphs]
+        for backend in rt.BACKENDS:
+            for orient in ("none", "degree"):
+                for emit in rt.EMIT_MODES:
+                    s = rt.CensusEngine(device=device, backend=backend).\
+                        session(g, orient=orient, emit=emit, max_items=4096)
+                    steps = [s.census()] + [s.update(*d) for d in stream]
+                    for k, (got, want) in enumerate(zip(steps, wants)):
+                        require((got == want).all(),
+                                f"oracle session {name} {backend} {orient} "
+                                f"{emit} step {k}: {got.tolist()} != "
+                                f"{want.tolist()}")
+                    require(np.array_equal(s.graph.packed,
+                                           graphs[-1].packed),
+                            f"oracle session {name}: graph drifted")
+                    s.close()
+                    sessions += 1
     counts = {fn.__name__: fn.launches for fn in (
         ops.fused_census_desc_partials, ops.fused_census_partials,
         ops.tricode_histogram)}
     if device.type == "cuda":
         for name, count in counts.items():
             require(count > 0, f"oracle phase never launched {name}")
-    log(f"oracle phase: {runs} runs equal census_batagelj_mrvar; "
+    log(f"oracle phase: {runs} runs and {sessions} sessions (census + "
+        f"{len(stream)} updates each) equal census_batagelj_mrvar; "
         f"launches {counts}")
     return counts
 
@@ -482,18 +729,20 @@ def main(argv=None) -> int:
     main_cfg = dict(PATENTS)
     hub_cfg = dict(HUB)
     max_items = MAX_ITEMS
+    session_ks = SESSION_DELTAS
     if args.rehearse:
         max_items = 4096
         main_cfg.update(n=5_000)
         hub_cfg.update(n=600)
+        session_ks = (10, 100, 1_000)
     t0 = time.perf_counter()
     g = rt.scale_free_digraph(**main_cfg)
     log(f"main graph: n {g.n} arcs {g.num_arcs} csr {g.packed.shape[0]} "
         f"max_degree {int(g.degrees.max())} built in "
         f"{time.perf_counter() - t0:.3f} s")
 
-    records = kernel_phase(g, device, max_items,
-                           reps=20 if device.type == "cuda" else 2)
+    records, codes_case = kernel_phase(
+        g, device, max_items, reps=20 if device.type == "cuda" else 2)
 
     # the main path, both orients: launch counts from 0 just before it
     from repro_torch.kernels import ops
@@ -512,6 +761,24 @@ def main(argv=None) -> int:
     ops.reset_launch_counts()
     held_run("orkut-hub", hub, device, "degree", max_items,
              rt.pair_space(hub).num_items_preprune)
+
+    # the session path: counts from 0 just before it
+    ops.reset_launch_counts()
+    session = session_phase(g, device, max_items, runs[0]["census"],
+                            runs[1]["census"], session_ks)
+    records[0]["session_launches"] = session["launches"]
+
+    # the pair_codes entry point, on the kernel phase's tiles
+    q, k, kc, want = codes_case
+    ops.reset_launch_counts()
+    got = rt.pair_codes(q, k, kc)
+    records[3]["launches"] = ops.pair_codes.launches
+    require(torch.equal(got, want), "pair_codes entry point != plain")
+    require(records[3]["launches"] == (1 if device.type == "cuda" else 0),
+            f"pair_codes entry point launched {records[3]['launches']} "
+            f"kernels")
+    log(f"pair_codes entry point: {q.shape[0]} tiles, launches "
+        f"{records[3]['launches']}, equal to the plain version")
 
     counts = oracle_phase(device)
     records[1]["launches"] = counts["fused_census_partials"]

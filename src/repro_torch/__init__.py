@@ -18,6 +18,11 @@ Public API::
     census = engine.run(g, max_items=2**24)
     engine.stats                                # chunks, items, bytes
 
+    # resident sliding-window session: upload once, recount by edge delta
+    session = engine.session(g, max_items=2**24)
+    c0 = session.census()
+    c1 = session.update(add_src, add_dst, del_src, del_dst)
+
 Backends map one-to-one onto ``repro``'s:
 
 ============  ================  =========================================
@@ -39,32 +44,44 @@ from repro_torch.core.census import (
 from repro_torch.core.census_ref import (
     census_batagelj_mrvar, census_bruteforce, census_dict)
 from repro_torch.core.digraph import (
-    CompactDigraph, canonical_pairs, from_dense, from_edges, from_pairs,
-    to_dense)
-from repro_torch.core.engine import EMIT_MODES, CensusEngine, EngineStats
+    CompactDigraph, GraphDelta, apply_delta, canonical_pairs, from_dense,
+    from_edges, from_pairs, to_dense)
+from repro_torch.core.engine import (
+    EMIT_MODES, CensusEngine, EngineSession, EngineStats)
 from repro_torch.core.generators import (
     PAPER_WORKLOADS, erdos_renyi_digraph, paper_workload,
     scale_free_digraph)
+from repro_torch.core.incremental import (
+    affected_pair_ids, subset_contribution, subset_descriptor_windows,
+    verify_delta_closure)
+from repro_torch.core.pair_index import IndexCorruptionError, PairSpaceIndex
 from repro_torch.core.plan_stream import (
     PlanChunk, PlanChunker, iter_plan_chunks)
 from repro_torch.core.planner import (
     CensusPlan, DescriptorWindow, PairSpace, PlanOverflowError,
     base_for_pairs, build_plan, descriptor_window, emit_items,
-    iter_descriptor_windows, pack_items, pair_space, unpack_items)
+    emit_items_for_pairs, iter_descriptor_windows, pack_items, pair_space,
+    unpack_items)
 from repro_torch.core.tricode import (
     FOLD_64_TO_16, NUM_CLASSES, TRIAD_NAMES, TRICODE_TO_CLASS)
+from repro_torch.kernels.ops import pair_codes
 
 __all__ = [
     "BACKENDS", "assemble_census", "assemble_counts", "triad_census",
     "census_batagelj_mrvar", "census_bruteforce", "census_dict",
-    "CompactDigraph", "canonical_pairs", "from_dense", "from_edges",
-    "from_pairs", "to_dense",
-    "EMIT_MODES", "CensusEngine", "EngineStats",
+    "CompactDigraph", "GraphDelta", "apply_delta", "canonical_pairs",
+    "from_dense", "from_edges", "from_pairs", "to_dense",
+    "EMIT_MODES", "CensusEngine", "EngineSession", "EngineStats",
+    "affected_pair_ids", "subset_contribution",
+    "subset_descriptor_windows", "verify_delta_closure",
+    "IndexCorruptionError", "PairSpaceIndex",
     "PAPER_WORKLOADS", "erdos_renyi_digraph", "paper_workload",
     "scale_free_digraph",
     "PlanChunk", "PlanChunker", "iter_plan_chunks",
     "CensusPlan", "DescriptorWindow", "PairSpace", "PlanOverflowError",
     "base_for_pairs", "build_plan", "descriptor_window", "emit_items",
-    "iter_descriptor_windows", "pack_items", "pair_space", "unpack_items",
+    "emit_items_for_pairs", "iter_descriptor_windows", "pack_items",
+    "pair_space", "unpack_items",
     "FOLD_64_TO_16", "NUM_CLASSES", "TRIAD_NAMES", "TRICODE_TO_CLASS",
+    "pair_codes",
 ]

@@ -18,7 +18,7 @@ made by :class:`repro_torch.core.engine.CensusEngine`.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -33,6 +33,11 @@ class CompactDigraph:
     indptr: np.ndarray         #: (n+1,) int64 row offsets
     packed: np.ndarray         #: (2*pairs,) int32 ``(nbr << 2) | code``
     num_arcs: int              #: directed edge count (after dedup)
+    #: lazily built sorted ``row * n + nbr`` entry keys
+    #: (:func:`entry_keys`); :func:`apply_delta` splices the cache
+    #: forward so warm updates skip the O(m) rebuild
+    ekey_cache: np.ndarray | None = field(
+        default=None, repr=False, compare=False)
 
     @property
     def degrees(self) -> np.ndarray:
@@ -117,7 +122,8 @@ def arcs_to_pairs(src, dst, n: int
     """Aggregate clean arcs into canonical unordered pairs.
 
     Returns ``(plo, phi, code)`` with ``plo < phi`` ascending by pair key
-    and 2-bit codes (1: lo->hi, 2: hi->lo, 3: mutual).
+    and 2-bit codes (1: lo->hi, 2: hi->lo, 3: mutual) — the pair
+    decomposition shared by :func:`from_edges` and :func:`apply_delta`.
     """
     lo, hi = np.minimum(src, dst), np.maximum(src, dst)
     pkey = lo * n + hi
@@ -133,7 +139,8 @@ def arcs_to_pairs(src, dst, n: int
 def from_pairs(n: int, plo: np.ndarray, phi: np.ndarray, code: np.ndarray,
                num_arcs: int | None = None) -> CompactDigraph:
     """Build the CSR structure from canonical pairs (``plo < phi``, codes
-    in {1, 2, 3}) — the second half of :func:`from_edges`."""
+    in {1, 2, 3}) — the second half of :func:`from_edges`, reusable by the
+    incremental :func:`apply_delta` edit path."""
     plo = np.asarray(plo, dtype=np.int64)
     phi = np.asarray(phi, dtype=np.int64)
     code = np.asarray(code, dtype=np.int64)
@@ -179,6 +186,220 @@ def canonical_pairs(g: CompactDigraph
     nbr = (g.packed >> 2).astype(np.int64)
     canon = nbr > rows
     return rows[canon], nbr[canon], (g.packed[canon] & 3).astype(np.int64)
+
+
+@dataclass(frozen=True)
+class GraphDelta:
+    """Record of the pairs perturbed by one :func:`apply_delta` edit.
+
+    ``old_code == 0`` marks a pair that appeared, ``new_code == 0`` one
+    that disappeared; every listed pair satisfies ``old != new``.
+    ``touched`` is the set of vertices whose CSR row changed — exactly the
+    endpoints of the changed pairs — which is what the incremental census
+    (:mod:`repro_torch.core.incremental`) keys its affected-pair discovery on.
+    """
+
+    n: int
+    pair_lo: np.ndarray        #: (C,) int64, lo < hi
+    pair_hi: np.ndarray        #: (C,) int64
+    old_code: np.ndarray       #: (C,) int64 dyad code in g_old (0 absent)
+    new_code: np.ndarray       #: (C,) int64 dyad code in g_new (0 absent)
+    touched: np.ndarray = field(default=None)  #: vertices with changed rows
+
+    def __post_init__(self):
+        if self.touched is None:
+            object.__setattr__(self, "touched", np.unique(
+                np.concatenate([self.pair_lo, self.pair_hi])))
+
+    @property
+    def num_changed(self) -> int:
+        return self.pair_lo.shape[0]
+
+
+def _lookup_pair_codes(g: CompactDigraph, keys: np.ndarray,
+                       entry_key: np.ndarray | None = None) -> np.ndarray:
+    """Dyad code of each canonical pair key ``lo * n + hi`` in ``g``
+    (0 where the pair is not adjacent).  O(|keys| log m) via the globally
+    sorted CSR entry keys (pass a precomputed ``entry_key`` to skip the
+    O(m) key materialization)."""
+    if g.packed.size == 0 or keys.size == 0:
+        return np.zeros(keys.shape[0], dtype=np.int64)
+    if entry_key is None:
+        entry_key = entry_keys(g)
+    pos = np.searchsorted(entry_key, keys)
+    safe = np.minimum(pos, entry_key.shape[0] - 1)
+    hit = (pos < entry_key.shape[0]) & (entry_key[safe] == keys)
+    return np.where(hit, (g.packed[safe] & 3).astype(np.int64), 0)
+
+
+def entry_keys(g: CompactDigraph) -> np.ndarray:
+    """Strictly ascending ``row * n + nbr`` key of every CSR entry — the
+    binary-searchable global address space of the adjacency structure.
+    Cached on the graph; :func:`apply_delta` keeps the cache alive by
+    splicing it into the edited graph's."""
+    if g.ekey_cache is not None:
+        return g.ekey_cache
+    rows = np.repeat(np.arange(g.n, dtype=np.int64), g.degrees)
+    ek = rows * g.n + (g.packed >> 2)
+    object.__setattr__(g, "ekey_cache", ek)
+    return ek
+
+
+class SplicePlan:
+    """Vectorized delete-and-insert plan over a length-``num`` sorted
+    array family (``np.delete`` + ``np.insert`` semantics in one pass).
+
+    ``del_pos`` (sorted, distinct) are positions to drop; ``ins_pos``
+    (sorted, possibly duplicated) are *pre-deletion* insertion points.
+    The plan precomputes one shared source permutation: survivor slots
+    shift right by the insertions at or before them, insertion points
+    shift left by the deletions preceding them — both monotone step
+    functions materialized with O(num) repeats, no per-array masking
+    and no O(num log delta) searches.  :meth:`splice` then edits any
+    number of parallel arrays with a single fancy gather plus a
+    delta-sized store each; :meth:`readdress` maps a surviving
+    position to its post-splice slot.
+    """
+
+    __slots__ = ("del_pos", "ipos", "src", "dest_ins", "n_surv", "n_new")
+
+    def __init__(self, num: int, del_pos: np.ndarray,
+                 ins_pos: np.ndarray):
+        self.del_pos = del_pos
+        ipos = ins_pos - np.searchsorted(del_pos, ins_pos)
+        self.ipos = ipos
+        n_ins = ipos.shape[0]
+        self.n_surv = num - del_pos.shape[0]
+        self.n_new = self.n_surv + n_ins
+        seg = np.diff(np.concatenate((
+            np.zeros(1, dtype=np.int64), ipos,
+            np.full(1, self.n_surv, dtype=np.int64))))
+        shift = np.repeat(np.arange(n_ins + 1, dtype=np.int64), seg)
+        keep = np.ones(num, dtype=bool)
+        keep[del_pos] = False
+        src = np.zeros(self.n_new, dtype=np.int64)
+        src[np.arange(self.n_surv, dtype=np.int64) + shift] = \
+            np.flatnonzero(keep)
+        self.src = src
+        self.dest_ins = ipos + np.arange(n_ins, dtype=np.int64)
+
+    def splice(self, arr: np.ndarray, vals) -> np.ndarray:
+        out = (arr[self.src] if self.n_surv
+               else np.empty(self.n_new, dtype=arr.dtype))
+        out[self.dest_ins] = vals
+        return out
+
+    def readdress(self, p: np.ndarray) -> np.ndarray:
+        """Post-splice position of the surviving pre-splice position
+        ``p`` (must not be in ``del_pos``)."""
+        p = p - np.searchsorted(self.del_pos, p)
+        return p + np.searchsorted(self.ipos, p, side="right")
+
+
+def apply_delta(g: CompactDigraph, add_src=None, add_dst=None,
+                del_src=None, del_dst=None
+                ) -> tuple[CompactDigraph, GraphDelta]:
+    """Insert and expire arcs without a full :func:`from_edges` rebuild.
+
+    Set semantics on directed arcs: removals apply first, then insertions
+    (an arc both deleted and added ends up present); inserting an existing
+    arc and deleting an absent one are no-ops; self-loops are dropped.
+    Works at pair granularity — only the pairs containing a delta arc are
+    re-coded, and the CSR is edited by splicing exactly the touched rows
+    (rewrite / delete / insert at binary-searched positions in the
+    globally sorted entry keys) — no re-sort, no re-deduplication, no
+    O(P) pair-decomposition merge.  Host cost is O(delta log m) searches
+    plus the O(m) memmoves of the splice itself.
+
+    Returns the edited graph and the :class:`GraphDelta` describing every
+    pair whose dyad code changed (the input to incremental censuses).
+    """
+    empty = np.zeros(0, dtype=np.int64)
+
+    def pair_bits(src, dst):
+        if src is None:
+            return empty, empty
+        src, dst, _ = clean_arcs(src, dst, g.n)
+        plo, phi, code = arcs_to_pairs(src, dst, g.n)
+        return plo * g.n + phi, code
+
+    dkey, dbits = pair_bits(del_src, del_dst)
+    akey, abits = pair_bits(add_src, add_dst)
+
+    keys = np.union1d(dkey, akey)
+    if keys.size == 0:
+        return g, GraphDelta(n=g.n, pair_lo=empty, pair_hi=empty,
+                             old_code=empty, new_code=empty)
+    dfull = np.zeros(keys.shape[0], dtype=np.int64)
+    afull = np.zeros(keys.shape[0], dtype=np.int64)
+    dfull[np.searchsorted(keys, dkey)] = dbits
+    afull[np.searchsorted(keys, akey)] = abits
+
+    entry_key = entry_keys(g) if g.packed.size else None
+    old = _lookup_pair_codes(g, keys, entry_key)
+    new = (old & ~dfull) | afull
+    changed = new != old
+    keys, old, new = keys[changed], old[changed], new[changed]
+    delta = GraphDelta(n=g.n, pair_lo=keys // g.n, pair_hi=keys % g.n,
+                       old_code=old, new_code=new)
+    if keys.size == 0:
+        return g, delta
+
+    # CSR splice: each changed pair perturbs exactly two rows (lo's entry
+    # for hi and hi's entry for lo).  Rows stay neighbor-sorted, so every
+    # edit is a rewrite / delete / insert at a binary-searched position in
+    # the globally sorted entry keys ``row * n + nbr``.
+    lo, hi = keys // g.n, keys % g.n
+    erow = np.concatenate([lo, hi])
+    enbr = np.concatenate([hi, lo])
+    eold = np.concatenate([old, swap_code(old)])
+    enew = np.concatenate([new, swap_code(new)])
+    ekey = erow * g.n + enbr
+    order = np.argsort(ekey)               # 2C entries, C = changed pairs
+    erow, enbr = erow[order], enbr[order]
+    eold, enew, ekey = eold[order], enew[order], ekey[order]
+
+    pos = (np.searchsorted(entry_key, ekey) if entry_key is not None
+           else np.zeros(ekey.shape[0], dtype=np.int64))
+
+    rew = (eold > 0) & (enew > 0)              # recoded in place
+    rvals = ((enbr[rew] << 2) | enew[rew]).astype(np.int32)
+    dele = enew == 0                           # entry vanishes
+    insm = eold == 0                           # entry appears
+    if dele.any() or insm.any():
+        vals = (enbr[insm] << 2) | enew[insm]
+        if vals.size and vals.max() >= 2**31:
+            raise ValueError(
+                "graph too large for int32 packing; need n < 2^29")
+        plan = SplicePlan(g.packed.shape[0], pos[dele], pos[insm])
+        packed = plan.splice(g.packed, vals.astype(np.int32))
+        # rewrites keep their key (same row, same neighbor), so the
+        # edited entry-key cache is one more splice of the same plan —
+        # the next delta never rebuilds it
+        ekey_new = (plan.splice(entry_key, ekey[insm])
+                    if entry_key is not None else None)
+        if rew.any():
+            packed[plan.readdress(pos[rew])] = rvals
+    else:
+        packed = g.packed.copy()
+        packed[pos[rew]] = rvals
+        ekey_new = entry_key
+
+    ddeg = np.zeros(g.n, dtype=np.int64)
+    np.add.at(ddeg, erow[dele], -1)
+    np.add.at(ddeg, erow[insm], 1)
+    indptr = g.indptr.copy()
+    indptr[1:] += np.cumsum(ddeg)
+
+    def _narcs(c):
+        return int(((c & 1) != 0).sum() + ((c & 2) != 0).sum())
+
+    g_new = CompactDigraph(
+        n=g.n, indptr=indptr, packed=packed,
+        num_arcs=g.num_arcs + _narcs(new) - _narcs(old),
+        ekey_cache=ekey_new)
+    return g_new, delta
+
 
 
 def from_dense(a: np.ndarray) -> CompactDigraph:

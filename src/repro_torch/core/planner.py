@@ -12,7 +12,9 @@ materialized at once:
   per-pair item counts, prefix offsets into the conceptual pre-prune item
   space, and the per-pair closed-form dyadic terms.
 * :func:`emit_items` materializes any contiguous slice ``[lo, hi)`` of
-  that item space (with pruning/orientation applied) in O(hi - lo) memory.
+  that item space (with pruning/orientation applied) in O(hi - lo) memory;
+  :func:`emit_items_for_pairs` does the same for an arbitrary pair subset
+  (the incremental census's affected pairs).
 * :func:`descriptor_window` compresses any window of the item space into
   O(pairs) *descriptors* (:class:`DescriptorWindow`) from which the
   device expands items itself
@@ -280,7 +282,9 @@ def _materialize_items(space: PairSpace, item_pair: np.ndarray,
                        within: np.ndarray
                        ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Turn (pair, within-pair position) coordinates into concrete pruned
-    ``(pair, slot, side)`` items."""
+    ``(pair, slot, side)`` items — the tail shared by :func:`emit_items`
+    and :func:`emit_items_for_pairs`, so the contiguous-slice and
+    pair-subset paths can never diverge."""
     deg_u = space.deg[space.pair_u[item_pair]]
     item_side = (within >= deg_u).astype(np.int8)
     item_slot = np.where(
@@ -293,7 +297,8 @@ def _materialize_items(space: PairSpace, item_pair: np.ndarray,
 def prune_items(space: PairSpace, item_pair: np.ndarray,
                 item_slot: np.ndarray, item_side: np.ndarray
                 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Apply the space's pruning/orientation policy to raw items."""
+    """Apply the space's pruning/orientation policy to raw items — the
+    shared tail of :func:`emit_items` and :func:`emit_items_for_pairs`."""
     if space.orient == "degree":
         inter_side = (space.pair_code[item_pair] >> INTER_SIDE_BIT) & 1
         w_ids = space.nbr[item_slot]
@@ -313,6 +318,31 @@ def prune_items(space: PairSpace, item_pair: np.ndarray,
                  ((item_side == 1) & (w_ids == space.pair_u[item_pair])))
         return item_pair[keep], item_slot[keep], item_side[keep]
     return item_pair, item_slot, item_side
+
+
+def emit_items_for_pairs(space: PairSpace, pair_ids
+                         ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Materialize the (pruned) work items of an arbitrary pair subset.
+
+    ``pair_ids`` indexes the space's canonical pair arrays; items come out
+    grouped by pair in the given order, in O(Σ counts[pair_ids]) memory.
+    The union over a partition of all pairs reproduces exactly the items
+    of :func:`emit_items` over ``[0, W₀)`` (possibly permuted — census
+    partials are order-invariant integer sums), which is what makes
+    per-subset census contributions additive.
+    """
+    ids = np.asarray(pair_ids, dtype=np.int64).ravel()
+    empty = np.zeros(0, np.int64)
+    if ids.size == 0:
+        return empty, empty, empty.astype(np.int8)
+    if ids.min() < 0 or ids.max() >= space.num_pairs:
+        raise ValueError(f"pair id outside [0, {space.num_pairs})")
+    counts = space.counts[ids]
+    total = int(counts.sum())
+    item_pair = np.repeat(ids, counts)
+    starts = np.cumsum(counts) - counts
+    within = np.arange(total, dtype=np.int64) - np.repeat(starts, counts)
+    return _materialize_items(space, item_pair, within)
 
 
 #: bytes per pair descriptor shipped by the device-emission path: three

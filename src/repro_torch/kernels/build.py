@@ -23,7 +23,7 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("census_fused.cu", "tricode_hist.cu")
+SOURCES = ("census_fused.cu", "pair_codes.cu", "tricode_hist.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 LIB_NAME = "librepro_torch_kernels.so"
@@ -38,6 +38,7 @@ SIGNATURES = {
     "census_fused_desc_launch": ([_P] * 11 + [_I] * 4 + [_P, _P], _I),
     "census_fused_items_launch": ([_P] * 7 + [_I] + [_P, _P], _I),
     "tricode_hist_launch": ([_P, _I, _P, _P], _I),
+    "pair_codes_launch": ([_P, _P, _P, _I, _P, _P], _I),
     "repro_torch_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.kernels import census_fused, ref, tricode_hist
 from repro_torch.kernels.census_fused import BLOCK_ITEMS, PACKED_PAD
+from repro_torch.kernels.pair_codes import LANES, pair_codes_kernel
 
 #: padding value for a flat-index array handed to the desc kernel:
 #: >= any possible valid-lane count (so padding lanes decode invalid) and
@@ -20,14 +21,15 @@ from repro_torch.kernels.census_fused import BLOCK_ITEMS, PACKED_PAD
 IDX_PAD = 2**31 - 2
 
 tricode_histogram_ref = ref.tricode_histogram_ref
+pair_codes_ref = ref.pair_codes_ref
 fused_census_partials_ref = ref.fused_census_partials_ref
 fused_census_desc_partials_ref = ref.fused_census_desc_partials_ref
 
 __all__ = [
     "BLOCK_ITEMS", "IDX_PAD", "PACKED_PAD", "fused_census_desc_partials",
     "fused_census_desc_partials_ref", "fused_census_partials",
-    "fused_census_partials_ref", "reset_launch_counts",
-    "tricode_histogram", "tricode_histogram_ref",
+    "fused_census_partials_ref", "pair_codes", "pair_codes_ref",
+    "reset_launch_counts", "tricode_histogram", "tricode_histogram_ref",
 ]
 
 
@@ -57,6 +59,24 @@ def tricode_histogram(tricode: torch.Tensor,
         return tricode_histogram_ref(masked)
     out = tricode_hist.tricode_histogram_kernel(masked)
     tricode_histogram.launches += 1
+    return out
+
+
+def pair_codes(q: torch.Tensor, k: torch.Tensor,
+               kc: torch.Tensor) -> torch.Tensor:
+    """Matched-key codes for (B, 128) int32 tiles: per query id, the code
+    of the equal key id in its row, else 0 (the sum over every equal key
+    when a row repeats one).  Any B; returns (B, 128) int32."""
+    if _on_cpu(q, k, kc):
+        for name, t in (("q", q), ("k", k), ("kc", kc)):
+            if t.dtype != torch.int32 or t.shape != q.shape \
+                    or t.dim() != 2 or t.shape[1] != LANES:
+                raise ValueError(f"{name} must be (B, 128) int32 like q, "
+                                 f"got {tuple(t.shape)} {t.dtype}")
+        return pair_codes_ref(q, k, kc)
+    out = pair_codes_kernel(q, k, kc)
+    if q.shape[0]:
+        pair_codes.launches += 1
     return out
 
 
@@ -109,7 +129,7 @@ def fused_census_desc_partials(indptr, packed, pair_u, pair_v, pair_code,
 def reset_launch_counts() -> None:
     """Set every wrapper's launch count to 0."""
     for fn in (tricode_histogram, fused_census_partials,
-               fused_census_desc_partials):
+               fused_census_desc_partials, pair_codes):
         fn.launches = 0
 
 

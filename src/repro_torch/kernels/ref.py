@@ -20,6 +20,15 @@ def tricode_histogram_ref(tricode_masked: torch.Tensor) -> torch.Tensor:
         0, torch.where(valid, tricode_masked, 0), valid.to(torch.int32))
 
 
+def pair_codes_ref(q: torch.Tensor, k: torch.Tensor,
+                   kc: torch.Tensor) -> torch.Tensor:
+    """Per query, the sum of the codes of every equal key in its row (the
+    matched key code, or 0 if the id is absent from a unique-key row),
+    wrapped to int32 as the JAX package's int32 sum wraps."""
+    eq = q[:, :, None] == k[:, None, :]
+    return torch.where(eq, kc[:, None, :], 0).sum(2).to(torch.int32)
+
+
 def fused_census_partials_ref(indptr, packed, pair_u, pair_v, pair_code,
                               item_sp, item_pv, search_iters: int):
     """``(hist64 (64,), inter (2,))`` int32 from packed host items."""

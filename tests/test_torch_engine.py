@@ -25,7 +25,8 @@ torch.set_num_threads(1)
 
 STATS_FIELDS = ("orient", "streamed", "max_items", "chunks", "chunk_shape",
                 "items", "chunk_items", "desc_shape", "plan_upload_bytes",
-                "peak_plan_bytes", "monolithic_plan_bytes", "emit")
+                "peak_plan_bytes", "monolithic_plan_bytes", "emit",
+                "graph_resident_bytes", "graph_replicated_bytes")
 
 
 def hub_graph(n=24, hub_out=16, extra=40, seed=0):

@@ -37,8 +37,10 @@ def test_port_sources_exist():
     for mod in ("core/tricode.py", "core/digraph.py", "core/census_ref.py",
                 "core/generators.py", "core/planner.py",
                 "core/plan_stream.py", "core/census.py", "core/engine.py",
+                "core/incremental.py", "core/pair_index.py",
                 "kernels/build.py", "kernels/census_fused.py",
-                "kernels/tricode_hist.py", "kernels/ref.py",
+                "kernels/tricode_hist.py", "kernels/pair_codes.py",
+                "kernels/ref.py",
                 "kernels/ops.py", "convert.py", "__init__.py"):
         assert f"repro_torch/{mod}" in names, mod
 

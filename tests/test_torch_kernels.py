@@ -4,7 +4,8 @@ Every test here needs a CUDA device (marker ``cuda``) and skips without
 one; the kernels are built from ``src/repro_torch/kernels/csrc`` at first
 use.  Run them on a GPU machine with::
 
-    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels.py
+    PYTHONPATH=src python -m pytest -q -m cuda --noconftest \
+        tests/test_torch_kernels.py
 
 Censuses and partials are integers: every comparison is exact.
 """
@@ -130,3 +131,100 @@ def test_wrappers_reject_bad_tensors(cuda):
     with pytest.raises(ValueError):
         tricode_histogram_kernel(
             torch.zeros((2, 5), dtype=torch.int32, device=cuda))
+
+
+def code_tiles(rng, b, hit_rate, dup=False):
+    """(q, k, kc) int32 (b, 128) tiles: sorted unique keys (or, with
+    ``dup``, unsorted repeated keys and codes that wrap int32)."""
+    if dup:
+        k = rng.integers(0, 6, size=(b, 128))
+        kc = rng.integers(-2**31, 2**31, size=(b, 128))
+        q = rng.integers(-1, 7, size=(b, 128))
+    else:
+        k = np.sort(rng.random((b, 128)).argsort(axis=1)[:, :128]
+                    + 200 * np.arange(128), axis=1)
+        k[:, 100:] = np.where(rng.random((b, 1)) < 0.2, -1, k[:, 100:])
+        kc = rng.integers(1, 4, size=(b, 128))
+        take = rng.random((b, 128)) < hit_rate
+        q = np.where(take, k, -5 - rng.integers(0, 100, size=(b, 128)))
+    return tuple(torch.from_numpy(a.astype(np.int32)) for a in (q, k, kc))
+
+
+@pytest.mark.parametrize("dup", [False, True])
+@pytest.mark.parametrize("hit_rate", [0.0, 0.3, 1.0])
+@pytest.mark.parametrize("b", [1, 7, 8, 33, 65_537])
+def test_pair_codes_matches_plain(cuda, b, hit_rate, dup):
+    rng = np.random.default_rng(b + int(10 * hit_rate) + 1000 * dup)
+    tiles = code_tiles(rng, b, hit_rate, dup)
+    before = ops.pair_codes.launches
+    got = ops.pair_codes(*(t.to(cuda) for t in tiles))
+    assert ops.pair_codes.launches == before + 1
+    # plain, on the CPU, in row blocks: (B, 128, 128) temporaries
+    want = torch.cat([ops.pair_codes(*(t[i:i + 4096] for t in tiles))
+                      for i in range(0, b, 4096)])
+    assert_same([got], [want])
+    assert tuple(got.shape) == (b, 128)
+
+
+def test_pair_codes_rejects_bad_tiles(cuda):
+    t = torch.zeros((4, 128), dtype=torch.int32, device=cuda)
+    from repro_torch.kernels.pair_codes import pair_codes_kernel
+    with pytest.raises(ValueError):
+        pair_codes_kernel(t, t, t[:, :64].contiguous())
+    with pytest.raises(TypeError):
+        pair_codes_kernel(t, t.long(), t)
+    with pytest.raises(ValueError):
+        pair_codes_kernel(t, t[:3], t)
+    with pytest.raises(ValueError):
+        pair_codes_kernel(t.t(), t, t)               # not (B, 128)
+    empty = torch.zeros((0, 128), dtype=torch.int32, device=cuda)
+    before = ops.pair_codes.launches
+    assert ops.pair_codes(empty, empty, empty).shape == (0, 128)
+    assert ops.pair_codes.launches == before
+
+
+def session_stream(g, seed):
+    """Empty, random, deletion-heavy and row-growing deltas."""
+    rng = np.random.default_rng(seed)
+    empty = np.zeros(0, np.int64)
+    src, dst = np.nonzero(rt.to_dense(g))
+    take = rng.random(src.shape[0]) < 0.4
+    hub = int(rng.integers(0, g.n))
+    spokes = rng.choice(g.n, min(int(g.degrees.max()) + 3, g.n),
+                        replace=False)
+    return [(empty, empty, empty, empty),
+            (rng.integers(0, g.n, 8), rng.integers(0, g.n, 8),
+             rng.integers(0, g.n, 8), rng.integers(0, g.n, 8)),
+            (empty, empty, src[take], dst[take]),
+            (np.full(spokes.shape[0], hub), spokes, empty, empty)]
+
+
+@pytest.mark.parametrize("orient", ["none", "degree"])
+@pytest.mark.parametrize("emit", ["device", "host"])
+@pytest.mark.parametrize("max_items", [None, 37])
+def test_fused_session_on_card_matches_cpu(cuda, emit, orient, max_items):
+    """A fused session on the card and a plain one on the CPU, over the
+    same deltas: equal censuses and stats after every step, each update
+    launching its kernel once per dispatch."""
+    g = rt.paper_workload("orkut", 120, 8.0, seed=5)
+    sessions = [rt.CensusEngine(device=d, backend="fused").session(
+        g, orient=orient, max_items=max_items, emit=emit)
+        for d in (cuda, "cpu")]
+    kernel = (ops.fused_census_desc_partials if emit == "device"
+              else ops.fused_census_partials)
+    gg = g
+    for k, delta in enumerate([None] + session_stream(g, seed=7)):
+        before = kernel.launches
+        if delta is None:
+            got = [s.census() for s in sessions]
+        else:
+            got = [s.update(*delta) for s in sessions]
+            gg, _ = rt.apply_delta(gg, *delta)
+        assert kernel.launches - before == sessions[0].stats.chunks
+        np.testing.assert_array_equal(got[0], got[1])
+        np.testing.assert_array_equal(got[0], rt.census_batagelj_mrvar(gg))
+        for field in ("chunks", "chunk_items", "items", "full_items",
+                      "affected_pairs", "desc_shape", "plan_upload_bytes"):
+            assert getattr(sessions[0].stats, field) == \
+                getattr(sessions[1].stats, field), (k, field)
+    assert sessions[0].stats.chunks > 0
