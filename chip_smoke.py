@@ -11,7 +11,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 2. holds every kernel against its plain torch version on the card, at the
    shapes of the main path (the first descriptor window of a
    patents-sized graph; for ``pair_codes``, tiles of that window's row
-   pairs), bit for bit (``torch.equal``), and times kernel,
+   pairs, and random tiles of the same shape where most queries hit
+   repeated keys), bit for bit (``torch.equal``), and times kernel,
    plain version and — where one PyTorch call computes the same function
    — that library call, by CUDA events with the L2 flushed before each
    call (and the kernel once more with the L2 warm);
@@ -61,10 +62,13 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: H100 SXM peaks from NVIDIA's data sheet: HBM3 bytes/s, and the
-#: non-tensor-core (CUDA core) rate used for the int32 operation bound
+#: H100 SXM peaks from NVIDIA's data sheet: HBM3 bytes/s, and the int32
+#: operation rate of the CUDA cores.  The sheet gives 67 TFLOP/s in
+#: float32, counting an FMA as 2 flops (33.5e12 fp32 instructions/s); an
+#: H100 SM has 64 int32 lanes beside its 128 fp32 lanes, so int32
+#: compares, selects and adds issue at half that: 16.75e12 ops/s
 HBM_BYTES_PER_S = 3.35e12
-CUDA_CORE_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 67e12 / 4
 
 #: the main-path graph: US-patents scale (the paper's smallest real graph)
 PATENTS = dict(n=3_774_768, avg_degree=4.38, exponent=3.126, mutual_p=0.0,
@@ -83,6 +87,8 @@ SESSION_DELTAS = (1_000, 16_500, 165_000)
 #: (rows, 128, 128) temporaries)
 PAIR_CODE_ROWS = 2**18
 PAIR_CODE_BLOCK = 8192
+#: seed of the dense pair_codes tiles
+PAIR_CODE_SEED = 12
 #: clock cycles of the spin kernel queued before each timed call (~1 ms)
 SPIN_CYCLES = 2_000_000
 
@@ -136,9 +142,10 @@ def ceil_log2_plus1(x):
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    """Least time for the work: max(bytes / HBM rate, ops / core rate)."""
+    """Least time for the work: max(bytes / HBM rate, int32 ops / int32
+    rate)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -336,33 +343,43 @@ def kernel_phase(g, device, max_items: int, reps: int) -> list[dict]:
         **timings(hist_kernel, hist_plain, hist_library),
         bound_ms=b, bound_by=by, bound_bytes=5 * w + 4 * 64,
         lanes=w, valid_lanes=int(count_mask.sum())))
-    # 4. pair_codes, on tiles of window 0's row pairs
+    # 4. pair_codes, on tiles of window 0's row pairs, and at the same B on
+    # random tiles where most queries hit: keys repeat within a row and
+    # fill all 128 lanes, and full-range codes make the sums wrap
     q, k, kc = (torch.from_numpy(t).to(device)
                 for t in pair_code_tiles(g, chunker, PAIR_CODE_ROWS))
     rows = q.shape[0]
+    gen = torch.Generator(device=device).manual_seed(PAIR_CODE_SEED)
+    dense = (torch.randint(0, 80, (rows, 128), generator=gen,
+                           device=device, dtype=torch.int32),
+             torch.randint(0, 64, (rows, 128), generator=gen,
+                           device=device, dtype=torch.int32),
+             torch.randint(-2**31, 2**31 - 1, (rows, 128), generator=gen,
+                           device=device, dtype=torch.int32))
 
     def codes_kernel():
         return ops.pair_codes(q, k, kc)
 
     def codes_plain():
-        return torch.cat([
-            ops.pair_codes_ref(q[i:i + PAIR_CODE_BLOCK],
-                               k[i:i + PAIR_CODE_BLOCK],
-                               kc[i:i + PAIR_CODE_BLOCK])
-            for i in range(0, rows, PAIR_CODE_BLOCK)])
+        return pair_codes_blocks(q, k, kc)
 
     got, want = codes_kernel(), codes_plain()
-    err = max_abs_err([got], [want])
+    dense_got, dense_want = ops.pair_codes(*dense), pair_codes_blocks(*dense)
+    err = max_abs_err([got, dense_got], [want, dense_want])
     require(torch.equal(got, want), "pair_codes kernel != plain version")
+    require(torch.equal(dense_got, dense_want),
+            "pair_codes kernel != plain version on the dense tiles")
+    hits, dense_hits = pair_code_hits(q, k), pair_code_hits(*dense[:2])
     nbytes = 4 * rows * 128 * 4
-    b, by = bound_ms(nbytes, rows * 128 * 128)
+    # per (query, key): one compare and one conditional add
+    b, by = bound_ms(nbytes, 2 * rows * 128 * 128)
     records.append(dict(
         name="pair_codes", route="cuda",
         source="src/repro_torch/kernels/csrc/pair_codes.cu",
         replaces="src/repro/kernels/pair_codes.py:36",
         launches=0, max_abs_err=err, **timings(codes_kernel, codes_plain),
         bound_ms=b, bound_by=by, bound_bytes=nbytes,
-        lanes=rows * 128, valid_lanes=int((want != 0).sum())))
+        lanes=rows * 128, valid_lanes=hits, dense_valid_lanes=dense_hits))
     for r in records:
         log(f"kernel {r['name']}: ms {r['ms']:.4f} (L2 flushed) warm_ms "
             f"{r['warm_ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
@@ -372,9 +389,30 @@ def kernel_phase(g, device, max_items: int, reps: int) -> list[dict]:
     log("kernel fused_census_desc_partials, fused_census_partials and "
         "pair_codes have no single PyTorch call that computes the same "
         "function: library_ms null")
-    log(f"kernel pair_codes tiles: {rows} row pairs of window 0 (valid "
-        f"lanes: queries that found their key)")
+    log(f"kernel pair_codes tiles: {rows} row pairs of window 0, "
+        f"{hits} of {rows * 128} queries found a key; dense tiles at the "
+        f"same B: {dense_hits} found one or more (repeated keys, codes "
+        f"that wrap), equal to the plain version")
     return records, (q, k, kc, want)
+
+
+def pair_codes_blocks(q, k, kc):
+    """The plain version over blocks of ``PAIR_CODE_BLOCK`` rows (its
+    (rows, 128, 128) temporaries would not fit the card at full B)."""
+    import torch
+    from repro_torch.kernels import ops
+    return torch.cat([
+        ops.pair_codes_ref(q[i:i + PAIR_CODE_BLOCK],
+                           k[i:i + PAIR_CODE_BLOCK],
+                           kc[i:i + PAIR_CODE_BLOCK])
+        for i in range(0, q.shape[0], PAIR_CODE_BLOCK)])
+
+
+def pair_code_hits(q, k) -> int:
+    """Queries equal to at least one key of their row."""
+    return sum(int((q[i:i + PAIR_CODE_BLOCK, :, None]
+                    == k[i:i + PAIR_CODE_BLOCK, None, :]).any(2).sum())
+               for i in range(0, q.shape[0], PAIR_CODE_BLOCK))
 
 
 def pair_code_tiles(g, chunker, rows: int):

@@ -255,6 +255,54 @@ class _Pipeline:
         return out[:64], out[64:64 + lanes]
 
 
+def _dispatch(pipe: _Pipeline, launch, words, landed=None
+              ) -> tuple[np.ndarray, np.ndarray]:
+    """Run ``launch`` on each int32 host buffer that ``words`` yields,
+    one dispatch in flight: buffer k+1 is built and uploaded while
+    dispatch k runs, and dispatch k lands only after k+1 is dispatched.
+    Every dispatch has landed when it returns.
+
+    ``launch(device_words) -> (hist, inter)`` enqueues one partials step;
+    ``landed(k, inter)`` is called with each dispatch's int64 ``inter``
+    lanes as it lands, in order.  Returns the int64 sums of ``hist`` and
+    of ``inter``'s two census lanes."""
+    hist_acc = np.zeros(64, np.int64)
+    inter_acc = np.zeros(2, np.int64)
+    pending = None
+
+    def land(k, ticket):
+        hist, inter = pipe.land(ticket)
+        hist_acc[:] += hist
+        inter_acc[:] += inter[:2]
+        if landed is not None:
+            landed(k, inter)
+
+    for k, host_words in enumerate(words):
+        ticket = pipe.fetch(k, *launch(pipe.upload(k, host_words)))
+        if pending is not None:
+            land(k - 1, pending)
+        pending = ticket
+    if pending is not None:
+        land(k, pending)
+    return hist_acc, inter_acc
+
+
+def _item_launcher(step, graph, chunk_shape: int):
+    """``launch`` for :func:`_dispatch` over ``[item_sp…, item_pv…]``
+    buffers (host emission)."""
+    return lambda words: step(*graph, words[:chunk_shape],
+                              words[chunk_shape:])
+
+
+def _desc_launcher(step, graph, idx: torch.Tensor, num_anchors: int):
+    """``launch`` for :func:`_dispatch` over descriptor-window buffers
+    (device emission)."""
+    def launch(words):
+        nv, dp, dc, dw, an = split_device_words(words, num_anchors)
+        return step(*graph, dp, dc, dw, an, nv, idx)
+    return launch
+
+
 class CensusEngine:
     """Single-device census engine: monolithic and streamed runs.
 
@@ -380,39 +428,27 @@ class CensusEngine:
         graph = self._upload_graph(chunker.device_arrays())
         step = partials_fn(self.backend, space.search_iters)
         pipe = _Pipeline(self.device, 2 * shape)
-
-        hist_acc = np.zeros(64, np.int64)
-        inter_acc = np.zeros(2, np.int64)
         base_asym = base_mut = 0
         chunk_items: list[int] = []
-        pending = None
-        dispatched = 0
-        for k in range(chunker.num_chunks):
-            with record_function("census.window"):
-                chunk = chunker.chunk(k)
-            base_asym += chunk.base_asym
-            base_mut += chunk.base_mut
-            chunk_items.append(chunk.num_items)
-            if progress is not None:
-                progress(chunk.index, chunker.num_chunks, chunk.num_items)
-            if chunk.num_items == 0:
-                # fully pruned chunk: its bases are credited above and its
-                # all-invalid items would contribute nothing
-                continue
-            words = pipe.upload(dispatched, np.concatenate(
-                [chunk.item_sp, chunk.item_pv]))
-            hist, inter = step(*graph, words[:shape], words[shape:])
-            ticket = pipe.fetch(dispatched, hist, inter)
-            dispatched += 1
-            if pending is not None:
-                h, i = pipe.land(pending)
-                hist_acc += h
-                inter_acc += i
-            pending = ticket
-        if pending is not None:
-            h, i = pipe.land(pending)
-            hist_acc += h
-            inter_acc += i
+
+        def words():
+            nonlocal base_asym, base_mut
+            for k in range(chunker.num_chunks):
+                with record_function("census.window"):
+                    chunk = chunker.chunk(k)
+                base_asym += chunk.base_asym
+                base_mut += chunk.base_mut
+                chunk_items.append(chunk.num_items)
+                if progress is not None:
+                    progress(chunk.index, chunker.num_chunks,
+                             chunk.num_items)
+                # a fully pruned chunk is credited its bases above and
+                # not dispatched: its all-invalid items contribute nothing
+                if chunk.num_items:
+                    yield np.concatenate([chunk.item_sp, chunk.item_pv])
+
+        hist_acc, inter_acc = _dispatch(
+            pipe, _item_launcher(step, graph, shape), words())
 
         st = self.stats
         st.chunk_items = chunk_items
@@ -453,36 +489,27 @@ class CensusEngine:
                                 chunker.desc_iters, space.orient,
                                 space.prune_self)
         pipe = _Pipeline(self.device, words_len)
-
-        hist_acc = np.zeros(64, np.int64)
-        inter_acc = np.zeros(2, np.int64)
         base_asym = base_mut = 0
         chunk_items: list[int] = []
 
-        def land(ticket, k):
-            hist, inter3 = pipe.land(ticket)
-            hist_acc[:] += hist
-            inter_acc[:] += inter3[:2]
-            chunk_items.append(int(inter3[2]))
-            if progress is not None:
-                progress(k, chunker.num_chunks, int(inter3[2]))
+        def words():
+            nonlocal base_asym, base_mut
+            for k in range(chunker.num_chunks):
+                ba, bm = chunker.bases(k)
+                base_asym += ba
+                base_mut += bm
+                with record_function("census.window"):
+                    host_words = chunker.descriptors(k).device_words()
+                yield host_words
 
-        pending = None
-        for k in range(chunker.num_chunks):
-            ba, bm = chunker.bases(k)
-            base_asym += ba
-            base_mut += bm
-            with record_function("census.window"):
-                host_words = chunker.descriptors(k).device_words()
-            words = pipe.upload(k, host_words)
-            nv, dp, dc, dw, an = split_device_words(words,
-                                                    chunker.num_anchors)
-            hist, inter = step(*graph, dp, dc, dw, an, nv, idx)
-            ticket = pipe.fetch(k, hist, inter)
-            if pending is not None:
-                land(pending, k - 1)
-            pending = ticket
-        land(pending, chunker.num_chunks - 1)
+        def landed(k, inter):
+            chunk_items.append(int(inter[2]))
+            if progress is not None:
+                progress(k, chunker.num_chunks, int(inter[2]))
+
+        hist_acc, inter_acc = _dispatch(
+            pipe, _desc_launcher(step, graph, idx, chunker.num_anchors),
+            words(), landed)
 
         st = self.stats
         st.chunk_items = chunk_items
@@ -704,37 +731,22 @@ class EngineSession:
     def _run_batches(self, batches
                      ) -> tuple[np.ndarray, np.ndarray, list[int]]:
         """Dispatch item batches (each with at most ``chunk_shape``
-        items) against the resident device graph, one window in flight
-        while the next is emitted and uploaded; accumulate int64 partials
-        on the host.  Empty batches are skipped without a dispatch."""
+        items) against the resident device graph; empty batches are
+        skipped without a dispatch.  Returns int64 partials and the
+        items per dispatch."""
         cs = self.chunk_shape
-        pipe = self._pipe
-        hist_acc = np.zeros(64, np.int64)
-        inter_acc = np.zeros(2, np.int64)
         chunk_items: list[int] = []
-        pending = None
-        k = 0
-        for item_pair, item_slot, item_side in batches:
-            num = int(item_pair.shape[0])
-            if num == 0:
-                continue
-            item_sp, item_pv = pad_and_pack(item_pair, item_slot,
-                                            item_side, cs)
-            words = pipe.upload(k, np.concatenate([item_sp, item_pv]))
-            hist, inter = self._step(*self._dev, words[:cs], words[cs:])
-            ticket = pipe.fetch(k, hist, inter)
-            k += 1
-            if pending is not None:
-                h, i = pipe.land(pending)
-                hist_acc += h
-                inter_acc += i
-            pending = ticket
-            chunk_items.append(num)
-        if pending is not None:
-            h, i = pipe.land(pending)
-            hist_acc += h
-            inter_acc += i
-        return hist_acc, inter_acc, chunk_items
+
+        def words():
+            for item_pair, item_slot, item_side in batches:
+                if item_pair.shape[0]:
+                    chunk_items.append(int(item_pair.shape[0]))
+                    yield np.concatenate(pad_and_pack(
+                        item_pair, item_slot, item_side, cs))
+
+        hist, inter = _dispatch(
+            self._pipe, _item_launcher(self._step, self._dev, cs), words())
+        return hist, inter, chunk_items
 
     def _run_desc_batches(self, windows
                           ) -> tuple[np.ndarray, np.ndarray, list[int]]:
@@ -743,35 +755,14 @@ class EngineSession:
         arrays.  Valid-item counts come back from the device (``inter``
         lane 2), so the stats match host emission without materializing
         a single item."""
-        pipe = self._pipe
-        hist_acc = np.zeros(64, np.int64)
-        inter_acc = np.zeros(2, np.int64)
         chunk_items: list[int] = []
-
-        def land(ticket):
-            hist, inter3 = pipe.land(ticket)
-            hist_acc[:] += hist
-            inter_acc[:] += inter3[:2]
-            chunk_items.append(int(inter3[2]))
-
-        pending = None
-        k = 0
-        for win in windows:
-            if win.num_preprune == 0:
-                continue
-            words = pipe.upload(k, win.device_words())
-            nv, dp, dc, dw, an = split_device_words(words,
-                                                    self.num_anchors)
-            hist, inter = self._step(*self._dev, dp, dc, dw, an, nv,
-                                     self._idx)
-            ticket = pipe.fetch(k, hist, inter)
-            k += 1
-            if pending is not None:
-                land(pending)
-            pending = ticket
-        if pending is not None:
-            land(pending)
-        return hist_acc, inter_acc, chunk_items
+        hist, inter = _dispatch(
+            self._pipe,
+            _desc_launcher(self._step, self._dev, self._idx,
+                           self.num_anchors),
+            (win.device_words() for win in windows if win.num_preprune),
+            lambda k, inter3: chunk_items.append(int(inter3[2])))
+        return hist, inter, chunk_items
 
     def _slices(self, item_pair, item_slot, item_side):
         """Yield materialized items in ``chunk_shape``-sized batches."""

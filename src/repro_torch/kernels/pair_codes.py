@@ -24,14 +24,27 @@ ROWS_PER_BLOCK = 4
 
 def require_tiles(name: str, t, device, rows: int | None = None) -> int:
     """Check that ``t`` is a contiguous (rows, 128) int32 tensor on
-    ``device``; return its data pointer."""
+    ``device``; return its data pointer.
+
+    The checks run on ``t`` itself: a non-contiguous view raises, and no
+    temporary copy (whose storage could be freed before the launch) is
+    ever made of it."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32, got {t.dtype}")
     if t.dim() != 2 or t.shape[1] != LANES or (
             rows is not None and t.shape[0] != rows):
         raise ValueError(f"{name} must have shape (B, {LANES}) with the "
                          f"other tiles' B, got {tuple(t.shape)}")
-    return build.require_vector(name, t.reshape(-1), device)
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous (row-major), got "
+                         f"strides {t.stride()}")
+    if t.shape[0] >= 2**31:
+        raise ValueError(f"{name} has more rows than int32 counts")
+    return t.data_ptr()
 
 
 def pair_codes_kernel(q: torch.Tensor, k: torch.Tensor,
@@ -47,7 +60,7 @@ def pair_codes_kernel(q: torch.Tensor, k: torch.Tensor,
     ptrs = [require_tiles("q", q, device),
             require_tiles("k", k, device, rows),
             require_tiles("kc", kc, device, rows)]
-    out = torch.empty_like(q)
+    out = torch.empty((rows, LANES), dtype=torch.int32, device=device)
     lib = build.load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

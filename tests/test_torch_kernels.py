@@ -177,6 +177,17 @@ def test_pair_codes_rejects_bad_tiles(cuda):
         pair_codes_kernel(t, t[:3], t)
     with pytest.raises(ValueError):
         pair_codes_kernel(t.t(), t, t)               # not (B, 128)
+    # (B, 128) views that are not row-major raise before any launch
+    wide = torch.zeros((4, 256), dtype=torch.int32, device=cuda)
+    square = torch.arange(128 * 128, dtype=torch.int32,
+                          device=cuda).reshape(128, 128)
+    for bad in (wide[:, :128], wide[:, 128:], square.t()):
+        before = ops.pair_codes.launches
+        with pytest.raises(ValueError, match="contiguous"):
+            ops.pair_codes(bad, bad.contiguous(), bad.contiguous())
+        with pytest.raises(ValueError, match="contiguous"):
+            ops.pair_codes(bad.contiguous(), bad.contiguous(), bad)
+        assert ops.pair_codes.launches == before
     empty = torch.zeros((0, 128), dtype=torch.int32, device=cuda)
     before = ops.pair_codes.launches
     assert ops.pair_codes(empty, empty, empty).shape == (0, 128)
