@@ -15,7 +15,10 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    repeated keys), bit for bit (``torch.equal``), and times kernel,
    plain version and — where one PyTorch call computes the same function
    — that library call, by CUDA events with the L2 flushed before each
-   call (and the kernel once more with the L2 warm);
+   call (and the kernel once more with the L2 warm); the desc kernel
+   also at the first window of the hub graph of step 4 and at the first
+   window a session update of step 5 dispatches, each with the share of
+   its tiles that the kernel stages;
 3. runs the main path at real size: ``CensusEngine(backend="fused")
    .run(g, max_items=2**24)`` with device emission on a graph the size of
    the US-patents citation graph (3,774,768 nodes, ~15.5M arcs), for both
@@ -46,6 +49,13 @@ with an error before any result.
 ``--rehearse`` runs the same phases on the CPU at toy sizes through the
 plain versions (no build, no device numbers) and never prints a result;
 it checks the script's own control flow before a run on the card.
+
+``--ab A.cu [B.cu ...]`` runs none of the phases: it builds the kernel
+library once more for each given version of ``census_fused.cu`` and
+times each version's desc kernel against the package's, in turns, at the
+desc kernel's three measured windows (same card, same call)::
+
+    python3 chip_smoke.py --ab build/ab/parent.cu
 """
 
 from __future__ import annotations
@@ -56,6 +66,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -91,6 +102,9 @@ PAIR_CODE_BLOCK = 8192
 PAIR_CODE_SEED = 12
 #: clock cycles of the spin kernel queued before each timed call (~1 ms)
 SPIN_CYCLES = 2_000_000
+#: seed of the citation delta whose first session window the kernel
+#: phase measures
+SESSION_WINDOW_SEED = 13
 
 
 def require(cond: bool, msg: str) -> None:
@@ -198,25 +212,120 @@ def graph_words_read(indptr, pair_u, pair_v, pairs) -> int:
     return 3 * pairs.numel() + indptr_words + row_words
 
 
-def kernel_phase(g, device, max_items: int, reps: int) -> list[dict]:
-    """Each kernel against its plain version at main-path shapes: the
-    first descriptor window of the main graph (orient "none")."""
+class DescCase(NamedTuple):
+    """One descriptor window of the desc kernel, on the card."""
+
+    label: str
+    graph: tuple          # indptr, packed, pair_u, pair_v, pair_code
+    window: tuple         # num_valid, desc_pair, desc_cum, desc_within0,
+    #                       anchors (split_device_words order)
+    idx: object           # the flat-index array, arange as on the main path
+    iters: tuple          # search_iters, desc_iters
+    orient: str
+
+    def args(self):
+        nv, dp, dc, dw, an = self.window
+        return (*self.graph, dp, dc, dw, an, nv, self.idx, *self.iters,
+                self.orient, True)
+
+
+def desc_case(label, chunker, words, device, orient) -> DescCase:
+    """The case of one window's ``device_words()`` over ``chunker``'s
+    graph arrays."""
     import torch
-    from repro_torch import PlanChunker
-    from repro_torch.core import census
     from repro_torch.core.planner import split_device_words
+    window = split_device_words(torch.from_numpy(words).to(device),
+                                chunker.num_anchors)
+    return DescCase(label, graph_tensors(chunker, device), window,
+                    torch.arange(chunker.chunk_shape, dtype=torch.int32,
+                                 device=device),
+                    (chunker.space.search_iters, chunker.desc_iters), orient)
+
+
+def desc_cases(g, hub, device, max_items: int, session_k: int):
+    """The desc kernel's measured windows: window 0 of the main graph
+    (orient "none"), window 0 of the hub graph (orient "degree"), and the
+    first window a session update with a ``session_k``-arc citation delta
+    dispatches (the old graph's affected pairs).  Returns the cases and
+    the main graph's chunker."""
+    import repro_torch as rt
+    from repro_torch import PlanChunker
+    from repro_torch.core.engine import _desc_capacity
+    from repro_torch.core.incremental import (affected_pair_ids,
+                                              subset_descriptor_windows)
+    from repro_torch.core.planner import max_pairs_per_window
+    chunker = PlanChunker(g, max_items)
+    hub_chunker = PlanChunker(hub, max_items, orient="degree")
+    _, delta = rt.apply_delta(g, *citation_delta(
+        g, session_k, np.random.default_rng(SESSION_WINDOW_SEED)))
+    space, lanes = chunker.space, chunker.chunk_shape
+    session_win = next(subset_descriptor_windows(
+        space, affected_pair_ids(space, delta.touched), lanes,
+        _desc_capacity(lanes, max_pairs_per_window(space.offsets, lanes)),
+        chunker.num_anchors))
+    return [
+        desc_case("patents-w0", chunker,
+                  chunker.descriptors(0).device_words(), device, "none"),
+        desc_case("orkut-hub-w0", hub_chunker,
+                  hub_chunker.descriptors(0).device_words(), device,
+                  "degree"),
+        desc_case(f"session-k{session_k}-w0", chunker,
+                  session_win.device_words(), device, "none"),
+    ], chunker
+
+
+def desc_work(case: DescCase) -> dict:
+    """What a desc-kernel window must do, from its data: the expanded
+    items, the bytes and the int32 operations of its bound, and how the
+    kernel's rule splits its tiles."""
+    import torch
+    from repro_torch.core import census
+    from repro_torch.kernels.census_fused import tile_desc_ranges
+    indptr, _, pair_u, pair_v, _ = case.graph
+    nv, dp, dc, dw, an = case.window
+    idx = case.idx
+    pair, slot, side, valid = census.expand_work_items(
+        indptr, pair_u, pair_v, dp, dc, dw, an, nv, idx, case.iters[1])
+    # per valid lane, the probes of the anchored descriptor search and
+    # of the row search
+    other = torch.where(side == 0, pair_v[pair], pair_u[pair])
+    row_probes = ceil_log2_plus1(indptr[other + 1] - indptr[other])[valid]
+    a = (idx // 16).clamp(0, an.shape[0] - 1)
+    lo_d = an[a]
+    hi_d = (lo_d + 17).clamp(max=dp.shape[0])
+    desc_probes = ceil_log2_plus1(hi_d - lo_d)[valid]
+    n_valid = int(valid.sum())
+    # words read: idx, num_valid, the anchors and the descriptors (one
+    # per pair in a window) the valid lanes use, the graph words of the
+    # window's pairs; then the 67 output words
+    pairs = torch.unique(pair[valid])
+    nwords = (idx.numel() + 1 + torch.unique(a[valid]).numel()
+              + 3 * pairs.numel()
+              + graph_words_read(indptr, pair_u, pair_v, pairs) + 67)
+    b, by = bound_ms(4 * nwords, float(row_probes.sum())
+                     + float(desc_probes.sum()) + n_valid)
+    tiles = tile_desc_ranges(an, dc, nv, idx)
+    return dict(items=(pair, slot, side, valid), bound_ms=b, bound_by=by,
+                bound_bytes=4 * nwords, lanes=idx.numel(),
+                valid_lanes=n_valid, tiles=int(tiles.live.sum()),
+                staged_tiles=int((tiles.live & tiles.staged).sum()),
+                staged_lanes=int(tiles.from_stage.sum()))
+
+
+def kernel_phase(g, hub, device, max_items: int, session_k: int,
+                 reps: int) -> list[dict]:
+    """Each kernel against its plain version at main-path shapes: the
+    first descriptor window of the main graph (orient "none"); the desc
+    kernel also at a hub-graph window and a session-update window."""
+    import torch
+    from repro_torch.core import census
     from repro_torch.kernels import ops
 
-    chunker = PlanChunker(g, max_items)
+    cases, chunker = desc_cases(g, hub, device, max_items, session_k)
     space = chunker.space
-    graph = graph_tensors(chunker, device)
+    graph = cases[0].graph
     indptr, packed, pair_u, pair_v, pair_code = graph
-    idx = torch.arange(chunker.chunk_shape, dtype=torch.int32,
-                       device=device)
-    words = torch.from_numpy(chunker.descriptors(0).device_words()).to(
-        device)
-    nv, dp, dc, dw, an = split_device_words(words, chunker.num_anchors)
-    iters = (space.search_iters, chunker.desc_iters)
+    iters = cases[0].iters
     lanes = chunker.chunk_shape
     # overwritten before each cold launch: 128 MB, past the 50 MB L2
     flush = torch.empty(2**25 if device.type == "cuda" else 1,
@@ -236,47 +345,47 @@ def kernel_phase(g, device, max_items: int, reps: int) -> list[dict]:
                         else timed_ms(library, device, reps, flush)),
             warm_ms=timed_ms(kernel, device, reps))
 
-    # data-dependent work of window 0: per valid lane, the probes of the
-    # anchored descriptor search and of the row search
-    pair, slot, side, valid = census.expand_work_items(
-        indptr, pair_u, pair_v, dp, dc, dw, an, nv, idx, iters[1])
-    other = torch.where(side == 0, pair_v[pair], pair_u[pair])
-    row_probes = ceil_log2_plus1(indptr[other + 1] - indptr[other])[valid]
-    a = (idx // 16).clamp(0, an.shape[0] - 1)
-    lo_d = an[a]
-    hi_d = (lo_d + 17).clamp(max=dp.shape[0])
-    desc_probes = ceil_log2_plus1(hi_d - lo_d)[valid]
-    n_valid = int(valid.sum())
-    row_total = float(row_probes.sum())
-    desc_total = float(desc_probes.sum())
+    # 1. fused desc kernel (the main path's kernel), at each window
+    windows = []
+    for case in cases:
+        def desc_kernel(case=case):
+            return ops.fused_census_desc_partials(*case.args())
 
-    # 1. fused desc kernel (the main path's kernel)
-    def desc_kernel():
-        return ops.fused_census_desc_partials(
-            *graph, dp, dc, dw, an, nv, idx, *iters, "none", True)
+        def desc_plain(case=case):
+            return ops.fused_census_desc_partials_ref(*case.args())
 
-    def desc_plain():
-        return ops.fused_census_desc_partials_ref(
-            *graph, dp, dc, dw, an, nv, idx, *iters, "none", True)
-
-    got, want = desc_kernel(), desc_plain()
-    err = max_abs_err(got, want)
-    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-            f"fused desc kernel != plain version: {got} vs {want}")
-    # words read: idx, num_valid, the anchors and the descriptors (one
-    # per pair in a window) the valid lanes use, the graph words of the
-    # window's pairs; then the 67 output words
-    pairs = torch.unique(pair[valid])
-    nwords = (lanes + 1 + torch.unique(a[valid]).numel() + 3 * pairs.numel()
-              + graph_words_read(indptr, pair_u, pair_v, pairs) + 67)
-    b, by = bound_ms(4 * nwords, row_total + desc_total + n_valid)
+        got, want = desc_kernel(), desc_plain()
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                f"fused desc kernel != plain version at {case.label}: "
+                f"{got} vs {want}")
+        work = desc_work(case)
+        windows.append(dict(
+            window=case.label, orient=case.orient,
+            max_abs_err=max_abs_err(got, want),
+            **timings(desc_kernel, desc_plain),
+            **{k: v for k, v in work.items() if k != "items"}))
+        if case is cases[0]:
+            pair, slot, side, valid = work["items"]
+    for w in windows:
+        log(f"kernel fused_census_desc_partials at {w['window']} (orient "
+            f"{w['orient']}): ms {w['ms']:.4f} (L2 flushed) warm_ms "
+            f"{w['warm_ms']:.4f} plain_ms {w['plain_ms']:.4f} bound_ms "
+            f"{w['bound_ms']:.4f} ({w['bound_by']}, {w['bound_bytes']} "
+            f"bytes) lanes {w['lanes']} valid {w['valid_lanes']}; staged "
+            f"tiles {w['staged_tiles']} of {w['tiles']} "
+            f"({w['staged_tiles'] / max(w['tiles'], 1):.4%}), valid lanes "
+            f"resolved from a stage {w['staged_lanes']} "
+            f"({w['staged_lanes'] / max(w['valid_lanes'], 1):.4%})")
+    head = windows[0]
     records.append(dict(
         name="fused_census_desc_partials", route="cuda",
         source="src/repro_torch/kernels/csrc/census_fused.cu",
-        replaces="src/repro/kernels/census_fused.py:187",
-        launches=0, max_abs_err=err, **timings(desc_kernel, desc_plain),
-        bound_ms=b, bound_by=by, bound_bytes=4 * nwords,
-        lanes=lanes, valid_lanes=n_valid))
+        replaces="src/repro/kernels/census_fused.py:187", launches=0,
+        max_abs_err=max(w["max_abs_err"] for w in windows),
+        **{k: head[k] for k in ("ms", "plain_ms", "library_ms", "warm_ms",
+                                "bound_ms", "bound_by", "bound_bytes",
+                                "lanes", "valid_lanes")},
+        windows=windows))
 
     # 2. fused host-item kernel, on the same window emitted as host items
     chunk = chunker.chunk(0)
@@ -394,6 +503,91 @@ def kernel_phase(g, device, max_items: int, reps: int) -> list[dict]:
         f"same B: {dense_hits} found one or more (repeated keys, codes "
         f"that wrap), equal to the plain version")
     return records, (q, k, kc, want)
+
+
+def desc_launch(lib, case: DescCase):
+    """A call of ``census_fused_desc`` from the kernel library ``lib`` on
+    ``case`` (the launch ``ops.fused_census_desc_partials`` makes, for a
+    library built from other sources)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.census_fused import OUT_WORDS, _keep_mode
+    nv, dp, dc, dw, an = case.window
+    ptrs = [t.data_ptr()
+            for t in (*case.graph, dp, dc, dw, an, nv, case.idx)]
+    keep_mode = _keep_mode(case.orient, True)
+
+    def run():
+        out = torch.zeros(OUT_WORDS, dtype=torch.int32,
+                          device=case.idx.device)
+        err = lib.census_fused_desc_launch(
+            *ptrs, case.idx.numel(), dp.numel(), an.numel(), keep_mode,
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        build.check(lib, err, "census_fused_desc")
+        return out[:64], out[64:]
+    return run
+
+
+def ab_phase(g, hub, device, max_items: int, session_k: int, sources,
+             reps: int) -> None:
+    """Time ``census_fused_desc`` built from each of ``sources`` (other
+    versions of ``csrc/census_fused.cu``) against the package's own, in
+    turns -- the package's, each source, each source again in reverse
+    order, the package's -- at the kernel phase's windows, with the L2
+    flushed and warm.  Every launch is held to the plain version bit for
+    bit, except from a source named ``part_*``: a diagnostic that computes
+    only a part of the function, to time that part.  Prints one line per turn, then the mean of each library's turns
+    per window as one JSON object."""
+    import torch
+    from repro_torch.kernels import build, ops
+    libs = {"package": build.SOURCES}
+    for src in sources:
+        libs[src.stem] = tuple(src.resolve() if s.name == "census_fused.cu"
+                               else s for s in build.SOURCES)
+    for name, srcs in libs.items():
+        log_desc_ptxas(name, build.build(srcs).parent / "build.log")
+    cases, _ = desc_cases(g, hub, device, max_items, session_k)
+    flush = torch.empty(2**25, dtype=torch.int32, device=device)
+    names = list(libs)[1:]
+    order = ["package", *names, *reversed(names), "package"]
+    turns = []
+    for case in cases:
+        want = ops.fused_census_desc_partials_ref(*case.args())
+        for turn, name in enumerate(order):
+            run = desc_launch(build.load_library(libs[name]), case)
+            got = run()
+            equal = (torch.equal(got[0], want[0])
+                     and torch.equal(got[1], want[1]))
+            # a "part_" source computes a part of the function on purpose
+            require(equal or name.startswith("part_"),
+                    f"{name} census_fused_desc != plain at {case.label}")
+            row = dict(window=case.label, lib=name, turn=turn,
+                       ms=timed_ms(run, device, reps, flush),
+                       warm_ms=timed_ms(run, device, reps))
+            turns.append(row)
+            log(f"ab {case.label} turn {turn} {name}: ms {row['ms']:.4f} "
+                f"(L2 flushed) warm_ms {row['warm_ms']:.4f}; "
+                f"{'equal' if equal else 'a part of the function'}")
+    summary = []
+    for case in cases:
+        for name in libs:
+            mine = [t for t in turns
+                    if t["window"] == case.label and t["lib"] == name]
+            summary.append(dict(
+                window=case.label, lib=name,
+                ms=sum(t["ms"] for t in mine) / len(mine),
+                warm_ms=sum(t["warm_ms"] for t in mine) / len(mine)))
+    print(json.dumps({"ab": summary}))
+
+
+def log_desc_ptxas(name: str, build_log: Path) -> None:
+    """Log ptxas' resource line for ``census_fused_desc`` in a build log."""
+    current = ""
+    for line in build_log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            current = line
+        elif "Used" in line and "census_fused_desc" in current:
+            log(f"ab {name} census_fused_desc ptxas: {line.strip()}")
 
 
 def pair_codes_blocks(q, k, kc):
@@ -747,7 +941,16 @@ def main(argv=None) -> int:
     parser.add_argument("--rehearse", action="store_true",
                         help="toy sizes on the CPU, plain versions only; "
                              "prints no result")
+    parser.add_argument("--ab", nargs="+", type=Path,
+                        metavar="CENSUS_FUSED_CU",
+                        help="instead of the phases: time census_fused_desc"
+                             " built from each given census_fused.cu "
+                             "against the package's, in turns, at the "
+                             "kernel phase's windows (on the card); "
+                             "prints no result")
     args = parser.parse_args(argv)
+    if args.ab and args.rehearse:
+        parser.error("--ab runs on the card only")
     t_start = time.perf_counter()
 
     import torch
@@ -779,8 +982,16 @@ def main(argv=None) -> int:
         f"max_degree {int(g.degrees.max())} built in "
         f"{time.perf_counter() - t0:.3f} s")
 
-    records, codes_case = kernel_phase(
-        g, device, max_items, reps=20 if device.type == "cuda" else 2)
+    hub = rt.paper_workload("orkut", hub_cfg["n"], hub_cfg["avg_degree"],
+                            seed=0)
+    log(f"hub graph: n {hub.n} csr {hub.packed.shape[0]} max_degree "
+        f"{int(hub.degrees.max())}")
+    reps = 20 if device.type == "cuda" else 2
+    if args.ab:
+        ab_phase(g, hub, device, max_items, session_ks[1], args.ab, reps)
+        return 0
+    records, codes_case = kernel_phase(g, hub, device, max_items,
+                                       session_ks[1], reps)
 
     # the main path, both orients: launch counts from 0 just before it
     from repro_torch.kernels import ops
@@ -792,10 +1003,6 @@ def main(argv=None) -> int:
     require(ops.fused_census_desc_partials.launches
             == records[0]["launches"], "launches outside the engine runs")
 
-    hub = rt.paper_workload("orkut", hub_cfg["n"], hub_cfg["avg_degree"],
-                            seed=0)
-    log(f"hub graph: n {hub.n} csr {hub.packed.shape[0]} max_degree "
-        f"{int(hub.degrees.max())}")
     ops.reset_launch_counts()
     held_run("orkut-hub", hub, device, "degree", max_items,
              rt.pair_space(hub).num_items_preprune)

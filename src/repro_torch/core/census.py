@@ -108,6 +108,23 @@ def classify_items(indptr, packed, pair_u, pair_v, pair_code,
     return tricode, count_mask, inter_mask, c_uv == 3
 
 
+def lane_descriptors(desc_cum, anchors, num_valid, idx,
+                     desc_iters: int):
+    """``(d, valid)``: the descriptor each flat item index of a window
+    belongs to (descriptor 0 for padding lanes), by the anchored
+    lower-bound search of :func:`expand_work_items`."""
+    num_descs = desc_cum.shape[0]
+    valid = idx < num_valid
+    idx = torch.where(valid, idx, 0)
+    a = (idx // DESC_ANCHOR_STRIDE).clamp(0, anchors.shape[0] - 1)
+    lo_d = anchors[a]
+    hi_d = (lo_d + DESC_ANCHOR_STRIDE + 1).clamp(max=num_descs)
+    d = segment_searchsorted(desc_cum, lo_d, hi_d, idx + 1,
+                             desc_iters) - 1
+    d = torch.minimum(d.clamp(0, num_descs - 1), hi_d - 1)
+    return torch.where(valid, d, 0), valid
+
+
 def expand_work_items(indptr, pair_u, pair_v, desc_pair, desc_cum,
                       desc_within0, anchors, num_valid, idx,
                       desc_iters: int):
@@ -126,15 +143,9 @@ def expand_work_items(indptr, pair_u, pair_v, desc_pair, desc_cum,
     before any arithmetic, so that no gather leaves its array and no
     ``IDX_PAD`` sum overflows.
     """
-    num_descs = desc_cum.shape[0]
-    valid = idx < num_valid
+    d, valid = lane_descriptors(desc_cum, anchors, num_valid, idx,
+                                desc_iters)
     idx = torch.where(valid, idx, 0)
-    a = (idx // DESC_ANCHOR_STRIDE).clamp(0, anchors.shape[0] - 1)
-    lo_d = anchors[a]
-    hi_d = (lo_d + DESC_ANCHOR_STRIDE + 1).clamp(max=num_descs)
-    d = segment_searchsorted(desc_cum, lo_d, hi_d, idx + 1,
-                             desc_iters) - 1
-    d = torch.minimum(d.clamp(0, num_descs - 1), hi_d - 1)
     pair = desc_pair[d]
     within = desc_within0[d] + (idx - desc_cum[d])
     u = pair_u[pair]

@@ -23,7 +23,8 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("census_fused.cu", "pair_codes.cu", "tricode_hist.cu")
+SOURCES = tuple(CSRC / name for name in
+                ("census_fused.cu", "pair_codes.cu", "tricode_hist.cu"))
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 LIB_NAME = "librepro_torch_kernels.so"
@@ -56,38 +57,40 @@ def nvcc_path() -> str:
         "of repro_torch are built from source at first use")
 
 
-def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+def library_path(sources: tuple[Path, ...] = SOURCES) -> Path:
+    """Where the library for these sources and the flags lives."""
     digest = hashlib.sha256()
-    for name in SOURCES:
-        digest.update(name.encode())
-        digest.update((CSRC / name).read_bytes())
+    for src in sources:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_ROOT / digest.hexdigest()[:16] / LIB_NAME
 
 
-def build() -> Path:
+def build(sources: tuple[Path, ...] = SOURCES) -> Path:
     """Compile the kernels unless the library for these sources exists.
 
+    ``sources`` are the package's own unless a measurement swaps in
+    another version of one of them (same file name, same C interface).
     Returns the library path; the compiler's output (``-Xptxas -v``:
     registers, shared memory and spills per kernel) is kept beside it in
     ``build.log``.
     """
-    lib = library_path()
+    lib = library_path(sources)
     if lib.exists():
         return lib
     nvcc = nvcc_path()
     lib.parent.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
-        objs = [Path(tmp) / (Path(name).stem + ".o") for name in SOURCES]
+        objs = [Path(tmp) / (src.stem + ".o") for src in sources]
         procs = [subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)],
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for name, obj in zip(SOURCES, objs)]
+            for src, obj in zip(sources, objs)]
         logs = [p.communicate()[0] for p in procs]
-        for name, p, log in zip(SOURCES, procs, logs):
+        for src, p, log in zip(sources, procs, logs):
             if p.returncode:
-                raise RuntimeError(f"nvcc failed on {name}:\n{log}")
+                raise RuntimeError(f"nvcc failed on {src}:\n{log}")
         staged = Path(tmp) / LIB_NAME
         link = subprocess.run(
             [nvcc, "-shared", "-o", str(staged), *map(str, objs)],
@@ -100,10 +103,10 @@ def build() -> Path:
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
+def load_library(sources: tuple[Path, ...] = SOURCES) -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with every entry
     point's ``argtypes``/``restype`` declared."""
-    lib = ctypes.CDLL(str(build()))
+    lib = ctypes.CDLL(str(build(sources)))
     for name, (argtypes, restype) in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -16,12 +16,21 @@ true-length, unpadded int32 vectors; the kernels handle the ragged tail.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
+from repro_torch.core.planner import DESC_ANCHOR_STRIDE
 from repro_torch.kernels import build
 
-#: work items per CUDA block (256 threads, 32 items each)
-BLOCK_ITEMS = 8192
+#: work items per CUDA block of either kernel (256 threads, 16 items
+#: each, walked as two independent chains)
+BLOCK_ITEMS = 4096
+
+#: the desc kernel's staging capacity per block: descriptors, and anchor
+#: entries (a tile's lane positions span BLOCK_ITEMS / 16 + 1 anchors)
+STAGE_DESCS = 512
+STAGE_ANCHORS = BLOCK_ITEMS // DESC_ANCHOR_STRIDE + 2
 
 #: the packed-CSR sentinel of the JAX package (larger than any entry, so a
 #: padded row tail stays sorted and unmatchable); the CUDA searches take
@@ -58,6 +67,83 @@ def _graph_pointers(what: str, indptr, packed, pair_u, pair_v, pair_code):
              build.require_vector("pair_code", pair_code, device,
                                   num_pairs)]
     return device, ptrs
+
+
+class TileRanges(NamedTuple):
+    """How ``census_fused_desc`` splits a launch's lanes."""
+
+    lo: torch.Tensor          #: per tile: first staged descriptor
+    hi: torch.Tensor          #: per tile: one past the last
+    staged: torch.Tensor      #: per tile: staged, with its lane table
+    live: torch.Tensor        #: per tile: it holds a valid lane
+    from_stage: torch.Tensor  #: per lane: valid and resolved from its
+    #                           tile's stage (else from global memory)
+
+
+def tile_desc_ranges(anchors, desc_cum, num_valid, idx) -> TileRanges:
+    """The rule by which ``census_fused_desc`` stages descriptors.
+
+    A valid lane ``i`` (``0 <= i < num_valid``) searches descriptors
+    ``[anchors[a], min(anchors[a] + 17, num_descs))`` with ``a =
+    min(i // 16, len(anchors) - 1)`` and lands on one of them or on the
+    one before.  Tile ``k`` holds lanes ``[k * BLOCK_ITEMS, (k + 1) *
+    BLOCK_ITEMS)``; an in-order ``idx`` puts indices of anchors ``[a0,
+    a1]`` there, so the tile stages ``[max(min - 1, 0), min(max + 17,
+    num_descs))`` over those anchors' min and max: when that is at most
+    ``STAGE_DESCS`` descriptors, the anchors lie in ``[0, num_descs)``,
+    and the window is well formed there (``desc_cum`` never falls over
+    the range and rises strictly below index ``16 (a1 + 1)``, and each
+    anchor ``a`` is the last descriptor starting at or before index
+    ``16 a``).  A valid lane with an index in ``[16 a0, 16
+    (a1 + 1))`` of a staged tile is resolved from the stage; any other
+    lane from global memory.  Works on CPU and CUDA tensors alike.
+    """
+    n = idx.shape[0]
+    tiles = max(1, -(-n // BLOCK_ITEMS))
+    device = idx.device
+    num_descs = desc_cum.shape[0]
+    first = torch.arange(tiles, device=device) * BLOCK_ITEMS
+    count = (n - first).clamp(min=1, max=BLOCK_ITEMS)
+    last_anchor = anchors.shape[0] - 1
+    a0 = (first // DESC_ANCHOR_STRIDE).clamp(max=last_anchor)
+    a1 = ((first + count - 1) // DESC_ANCHOR_STRIDE).clamp(max=last_anchor)
+    grid = torch.minimum(
+        a0[:, None] + torch.arange(STAGE_ANCHORS, device=device),
+        a1[:, None])
+    an = anchors.long()
+    reached = an[grid]
+    amin, amax = reached.amin(1), reached.amax(1)
+    lo = (amin - 1).clamp(min=0)
+    hi = (amax + DESC_ANCHOR_STRIDE + 1).clamp(max=num_descs)
+    fits = (amin >= 0) & (amax < num_descs) & (hi - lo <= STAGE_DESCS)
+    # well formed: over [lo, hi) desc_cum never falls and rises strictly
+    # below the tile's last index (padding repeats DESC_CUM_PAD above it),
+    # and every anchor of [a0, a1] is exact
+    cum = desc_cum.long()
+    end = (a1 + 1) * DESC_ANCHOR_STRIDE
+    j = lo[:, None] + 1 + torch.arange(STAGE_DESCS, device=device)
+    prev = cum[(j - 1).clamp(max=num_descs - 1)]
+    step = cum[j.clamp(max=num_descs - 1)]
+    bad = (j < hi[:, None]) & ((step < prev)
+                              | ((step == prev) & (prev < end[:, None])))
+    rises = ~bad.any(1)
+    at = an.clamp(0, num_descs - 1)
+    index = torch.arange(an.shape[0], device=device) * DESC_ANCHOR_STRIDE
+    after = torch.where(at + 1 < num_descs,
+                        cum[(at + 1).clamp(max=num_descs - 1)], index + 1)
+    exact = (cum[at] <= index) & ((at + 1 == num_descs) | (after > index))
+    inexact = torch.zeros(an.shape[0] + 1, dtype=torch.long, device=device)
+    inexact[1:] = torch.cumsum((~exact).long(), 0)
+    staged = fits & rises & (inexact[a1 + 1] == inexact[a0])
+    lanes = idx.long()
+    valid = (lanes >= 0) & (lanes < int(num_valid.reshape(-1)[0]))
+    tile = torch.arange(n, device=device) // BLOCK_ITEMS
+    from_stage = (valid & staged[tile]
+                  & (lanes >= a0[tile] * DESC_ANCHOR_STRIDE)
+                  & (lanes < (a1[tile] + 1) * DESC_ANCHOR_STRIDE))
+    live = torch.zeros(tiles, dtype=torch.bool, device=device)
+    live[tile[valid]] = True
+    return TileRanges(lo, hi, staged, live, from_stage)
 
 
 def census_fused_desc_kernel(indptr, packed, pair_u, pair_v, pair_code,

@@ -15,8 +15,11 @@ import pytest
 import torch
 
 import repro_torch as rt
+from repro_torch.core.incremental import (affected_pair_ids,
+                                          subset_descriptor_windows)
 from repro_torch.core.planner import split_device_words
 from repro_torch.kernels import ops
+from repro_torch.kernels.census_fused import BLOCK_ITEMS, tile_desc_ranges
 
 pytestmark = pytest.mark.cuda
 
@@ -82,6 +85,153 @@ def test_fused_desc_matches_plain(cuda, orient, prune_self, name,
                 ck.desc_iters, orient, prune_self)
         assert_same(ops.fused_census_desc_partials(*args),
                     ops.fused_census_desc_partials_ref(*args))
+
+
+def star_with_pendants(k=12):
+    """Hub 0 with leaves 1..k, each leaf with a pendant k+i."""
+    leaves = np.arange(1, k + 1)
+    return rt.from_edges(np.concatenate([np.zeros(k, np.int64), leaves]),
+                         np.concatenate([leaves, leaves + k]), n=2 * k + 1)
+
+
+def ring(n=6000):
+    """Every pair carries 4 items, so a 4096-lane tile reaches ~1,024
+    descriptors: past the staging capacity."""
+    v = np.arange(n)
+    return rt.from_edges(v, (v + 1) % n, n=n)
+
+
+def index_layout(layout, lanes, rng):
+    """A flat-index array over ``lanes`` window lanes, with IDX_PAD
+    padding lanes: in order, permuted, strided, shuffled within each
+    tile, or in order and ending mid-tile."""
+    pad = np.full(37, ops.IDX_PAD, np.int64)
+    order = np.arange(lanes)
+    if layout == "arange":
+        idx = np.concatenate([order, pad])
+    elif layout == "permuted":
+        idx = rng.permutation(np.concatenate([order, pad]))
+    elif layout == "strided":
+        idx = np.concatenate([order[::3], pad, order[1::3], order[2::3]])
+    elif layout == "tile_shuffled":
+        idx = np.concatenate([order, pad])
+        for lo in range(0, idx.shape[0], BLOCK_ITEMS):
+            idx[lo:lo + BLOCK_ITEMS] = rng.permutation(
+                idx[lo:lo + BLOCK_ITEMS])
+    else:
+        assert layout == "ragged_tail"
+        idx = np.concatenate([order, pad[:BLOCK_ITEMS // 3]])
+        idx = idx[:max(1, idx.shape[0] - BLOCK_ITEMS // 2 - 1)]
+    return torch.from_numpy(idx.astype(np.int32))
+
+
+def desc_windows(ck, device):
+    for k in range(ck.num_chunks):
+        words = torch.from_numpy(ck.descriptors(k).device_words())
+        yield split_device_words(words.to(device), ck.num_anchors)
+
+
+def hold_desc_windows(graph, windows, idx, orient, prune_self,
+                      search_iters, desc_iters):
+    """Every window against the plain version on the same CUDA tensors;
+    returns the valid lanes, and those the kernel's rule resolves from a
+    stage."""
+    valid = staged = 0
+    for nv, dp, dc, dw, an in windows:
+        args = (*graph, dp, dc, dw, an, nv, idx, search_iters, desc_iters,
+                orient, prune_self)
+        assert_same(ops.fused_census_desc_partials(*args),
+                    ops.fused_census_desc_partials_ref(*args))
+        valid += int(((idx >= 0) & (idx < nv)).sum())
+        staged += int(tile_desc_ranges(an, dc, nv, idx).from_stage.sum())
+    return valid, staged
+
+
+@pytest.mark.parametrize("layout", ["arange", "permuted", "strided",
+                                    "tile_shuffled", "ragged_tail"])
+@pytest.mark.parametrize("name, orient, max_items", [
+    ("orkut-hub", "degree", 2**18), ("ring", "none", 2**16)])
+def test_fused_desc_index_layouts(cuda, name, orient, max_items, layout):
+    """The staged and the per-lane branch, bit for bit: any index
+    layout on a hub graph (max degree 733) and on a ring whose tiles
+    overflow the staging capacity."""
+    g = (rt.paper_workload("orkut", 1000, 20.0, seed=0)
+         if name == "orkut-hub" else ring())
+    ck = rt.PlanChunker(g, max_items, orient=orient)
+    idx = index_layout(layout, ck.chunk_shape,
+                       np.random.default_rng(len(layout))).to(cuda)
+    valid, staged = hold_desc_windows(
+        graph_on(ck, cuda), desc_windows(ck, cuda), idx, orient, True,
+        ck.space.search_iters, ck.desc_iters)
+    assert valid > 0
+    if name == "ring" or layout in ("permuted", "strided"):
+        assert staged < valid       # lanes resolved from global memory
+    else:
+        assert staged == valid      # every lane from its tile's stage
+
+
+@pytest.mark.parametrize("orient", ["none", "degree"])
+@pytest.mark.parametrize("max_items", [1, 3, 5])
+def test_fused_desc_tiny_budgets(cuda, orient, max_items):
+    """Windows of 1-5 items over pairs with one post-prune item."""
+    ck = rt.PlanChunker(star_with_pendants(), max_items, orient=orient)
+    idx = index_layout("arange", ck.chunk_shape,
+                       np.random.default_rng(0)).to(cuda)
+    valid, staged = hold_desc_windows(
+        graph_on(ck, cuda), desc_windows(ck, cuda), idx, orient, True,
+        ck.space.search_iters, ck.desc_iters)
+    assert staged == valid == ck.space.num_items_preprune
+
+
+@pytest.mark.parametrize("orient, prune_self", [
+    ("none", False), ("none", True), ("degree", True)])
+def test_fused_desc_subset_windows(cuda, orient, prune_self):
+    """Session windows (arbitrary pair ids: the affected pairs of a
+    delta) under each of the three keep modes."""
+    g = rt.paper_workload("orkut", 1000, 20.0, seed=0)
+    rng = np.random.default_rng(3)
+    _, delta = rt.apply_delta(g, rng.integers(0, g.n, 40),
+                              rng.integers(0, g.n, 40))
+    ck = rt.PlanChunker(g, 2**16, orient=orient, prune_self=prune_self)
+    pairs = affected_pair_ids(ck.space, delta.touched)
+    wins = [split_device_words(torch.from_numpy(w.device_words()).to(cuda),
+                               ck.num_anchors)
+            for w in subset_descriptor_windows(
+                ck.space, pairs, ck.chunk_shape, ck.chunk_shape // 2 + 1,
+                ck.num_anchors)]
+    idx = index_layout("arange", ck.chunk_shape,
+                       np.random.default_rng(0)).to(cuda)
+    valid, staged = hold_desc_windows(
+        graph_on(ck, cuda), wins, idx, orient, prune_self,
+        ck.space.search_iters, ck.desc_iters)
+    assert len(wins) > 1 and staged == valid
+
+
+def test_fused_desc_inexact_anchors(cuda):
+    """Anchors that undershoot (not the last descriptor at their index):
+    the kernel keeps the anchored search's answer, wherever the plain
+    version's gathers stay in bounds (checked on the CPU first)."""
+    g = rt.paper_workload("webgraph", 400, 6.0, seed=0)
+    ck = rt.PlanChunker(g, 20_000)
+    graph = [torch.from_numpy(a) for a in ck.device_arrays()]
+    idx = torch.arange(ck.chunk_shape, dtype=torch.int32)
+    held = 0
+    for k in range(ck.num_chunks):
+        nv, dp, dc, dw, an = (torch.from_numpy(a) for a in split_device_words(
+            ck.descriptors(k).device_words(), ck.num_anchors))
+        for shift in (1, 2, 5, 20, 40):
+            bad = (an - shift).clamp(min=0)
+            args = [*graph, dp, dc, dw, bad, nv, idx]
+            rest = (ck.space.search_iters, ck.desc_iters, "none", True)
+            try:
+                want = ops.fused_census_desc_partials_ref(*args, *rest)
+            except IndexError:
+                continue            # a slot past the packed array
+            got = ops.fused_census_desc_partials(
+                *(t.to(cuda) for t in args), *rest)
+            assert_same(got, want)
+            held += 1
+    assert held > 0
 
 
 @pytest.mark.parametrize("orient", ["none", "degree"])
