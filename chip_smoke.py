@@ -16,9 +16,12 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    plain version and — where one PyTorch call computes the same function
    — that library call, by CUDA events with the L2 flushed before each
    call (and the kernel once more with the L2 warm); the desc kernel
-   also at the first window of the hub graph of step 4 and at the first
-   window a session update of step 5 dispatches, each with the share of
-   its tiles that the kernel stages;
+   also at the first window of the hub graph of step 4 and at a
+   session-style subset window (the affected pairs of a seeded
+   16,500-arc citation delta on the unedited patents-size graph), each
+   with the share of its tiles and lanes on the staged branch, as the
+   kernel's probe instance reports them from the card and held to the
+   staging rule ``tile_desc_ranges``;
 3. runs the main path at real size: ``CensusEngine(backend="fused")
    .run(g, max_items=2**24)`` with device emission on a graph the size of
    the US-patents citation graph (3,774,768 nodes, ~15.5M arcs), for both
@@ -53,7 +56,8 @@ it checks the script's own control flow before a run on the card.
 ``--ab A.cu [B.cu ...]`` runs none of the phases: it builds the kernel
 library once more for each given version of ``census_fused.cu`` and
 times each version's desc kernel against the package's, in turns, at the
-desc kernel's three measured windows (same card, same call)::
+desc kernel's three measured windows (same card, same call), holding
+every launch to the plain version bit for bit::
 
     python3 chip_smoke.py --ab build/ab/parent.cu
 """
@@ -102,8 +106,8 @@ PAIR_CODE_BLOCK = 8192
 PAIR_CODE_SEED = 12
 #: clock cycles of the spin kernel queued before each timed call (~1 ms)
 SPIN_CYCLES = 2_000_000
-#: seed of the citation delta whose first session window the kernel
-#: phase measures
+#: seed of the citation delta whose first subset window (over the
+#: unedited graph's affected pairs) the kernel phase measures
 SESSION_WINDOW_SEED = 13
 
 
@@ -244,10 +248,12 @@ def desc_case(label, chunker, words, device, orient) -> DescCase:
 
 def desc_cases(g, hub, device, max_items: int, session_k: int):
     """The desc kernel's measured windows: window 0 of the main graph
-    (orient "none"), window 0 of the hub graph (orient "degree"), and the
-    first window a session update with a ``session_k``-arc citation delta
-    dispatches (the old graph's affected pairs).  Returns the cases and
-    the main graph's chunker."""
+    (orient "none"), window 0 of the hub graph (orient "degree"), and a
+    session-style subset window: the first of the windows over the main
+    graph's pairs that a ``session_k``-arc citation delta (seed
+    ``SESSION_WINDOW_SEED``) touches, as a session's update recounts the
+    old graph's affected pairs first.  Returns the cases and the main
+    graph's chunker."""
     import repro_torch as rt
     from repro_torch import PlanChunker
     from repro_torch.core.engine import _desc_capacity
@@ -269,18 +275,44 @@ def desc_cases(g, hub, device, max_items: int, session_k: int):
         desc_case("orkut-hub-w0", hub_chunker,
                   hub_chunker.descriptors(0).device_words(), device,
                   "degree"),
-        desc_case(f"session-k{session_k}-w0", chunker,
+        desc_case(f"subset-k{session_k}-w0", chunker,
                   session_win.device_words(), device, "none"),
     ], chunker
 
 
-def desc_work(case: DescCase) -> dict:
+def desc_branches(case: DescCase, want) -> tuple:
+    """Which branch the desc kernel took on ``case``: on the card, its
+    probe instance's per-tile and per-lane flags, held to the staging
+    rule ``tile_desc_ranges`` and its output to the plain version's
+    ``want``; on the CPU (rehearsal, no kernel) the rule's.  Returns the
+    tiles that hold a valid lane, the (tile, lane) flags, and whether the
+    flags came from the card."""
+    import torch
+    from repro_torch.kernels.census_fused import (census_fused_desc_probe,
+                                                  tile_desc_ranges)
+    nv, dp, dc, dw, an = case.window
+    rule = tile_desc_ranges(an, dc, nv, case.idx)
+    if case.idx.device.type != "cuda":
+        return rule.live, rule.staged, rule.from_stage, False
+    probe = census_fused_desc_probe(*case.graph, dp, dc, dw, an, nv,
+                                    case.idx, case.orient, True)
+    require(torch.equal(probe.out[:64], want[0])
+            and torch.equal(probe.out[64:], want[1]),
+            f"desc kernel probe != plain version at {case.label}")
+    require(torch.equal(probe.tile_staged, rule.staged),
+            f"desc kernel staged other tiles than its rule at {case.label}")
+    require(torch.equal(probe.lane_staged, rule.from_stage),
+            f"desc kernel resolved other lanes from a stage than its rule "
+            f"at {case.label}")
+    return rule.live, probe.tile_staged, probe.lane_staged, True
+
+
+def desc_work(case: DescCase, want) -> dict:
     """What a desc-kernel window must do, from its data: the expanded
-    items, the bytes and the int32 operations of its bound, and how the
-    kernel's rule splits its tiles."""
+    items, the bytes and the int32 operations of its bound; and how the
+    kernel split its tiles (``desc_branches``)."""
     import torch
     from repro_torch.core import census
-    from repro_torch.kernels.census_fused import tile_desc_ranges
     indptr, _, pair_u, pair_v, _ = case.graph
     nv, dp, dc, dw, an = case.window
     idx = case.idx
@@ -304,12 +336,14 @@ def desc_work(case: DescCase) -> dict:
               + graph_words_read(indptr, pair_u, pair_v, pairs) + 67)
     b, by = bound_ms(4 * nwords, float(row_probes.sum())
                      + float(desc_probes.sum()) + n_valid)
-    tiles = tile_desc_ranges(an, dc, nv, idx)
+    live, tile_staged, lane_staged, on_card = desc_branches(case, want)
     return dict(items=(pair, slot, side, valid), bound_ms=b, bound_by=by,
                 bound_bytes=4 * nwords, lanes=idx.numel(),
-                valid_lanes=n_valid, tiles=int(tiles.live.sum()),
-                staged_tiles=int((tiles.live & tiles.staged).sum()),
-                staged_lanes=int(tiles.from_stage.sum()))
+                valid_lanes=n_valid, tiles=int(live.sum()),
+                staged_tiles=int((live & tile_staged).sum()),
+                staged_lanes=int(lane_staged.sum()),
+                branches_from=("the card" if on_card
+                               else "the rule (no kernel)"))
 
 
 def kernel_phase(g, hub, device, max_items: int, session_k: int,
@@ -358,7 +392,7 @@ def kernel_phase(g, hub, device, max_items: int, session_k: int,
         require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
                 f"fused desc kernel != plain version at {case.label}: "
                 f"{got} vs {want}")
-        work = desc_work(case)
+        work = desc_work(case, want)
         windows.append(dict(
             window=case.label, orient=case.orient,
             max_abs_err=max_abs_err(got, want),
@@ -375,7 +409,8 @@ def kernel_phase(g, hub, device, max_items: int, session_k: int,
             f"tiles {w['staged_tiles']} of {w['tiles']} "
             f"({w['staged_tiles'] / max(w['tiles'], 1):.4%}), valid lanes "
             f"resolved from a stage {w['staged_lanes']} "
-            f"({w['staged_lanes'] / max(w['valid_lanes'], 1):.4%})")
+            f"({w['staged_lanes'] / max(w['valid_lanes'], 1):.4%}), as "
+            f"{w['branches_from']} reports")
     head = windows[0]
     records.append(dict(
         name="fused_census_desc_partials", route="cuda",
@@ -535,8 +570,7 @@ def ab_phase(g, hub, device, max_items: int, session_k: int, sources,
     turns -- the package's, each source, each source again in reverse
     order, the package's -- at the kernel phase's windows, with the L2
     flushed and warm.  Every launch is held to the plain version bit for
-    bit, except from a source named ``part_*``: a diagnostic that computes
-    only a part of the function, to time that part.  Prints one line per turn, then the mean of each library's turns
+    bit.  Prints one line per turn, then the mean of each library's turns
     per window as one JSON object."""
     import torch
     from repro_torch.kernels import build, ops
@@ -556,18 +590,15 @@ def ab_phase(g, hub, device, max_items: int, session_k: int, sources,
         for turn, name in enumerate(order):
             run = desc_launch(build.load_library(libs[name]), case)
             got = run()
-            equal = (torch.equal(got[0], want[0])
-                     and torch.equal(got[1], want[1]))
-            # a "part_" source computes a part of the function on purpose
-            require(equal or name.startswith("part_"),
+            require(torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1]),
                     f"{name} census_fused_desc != plain at {case.label}")
             row = dict(window=case.label, lib=name, turn=turn,
                        ms=timed_ms(run, device, reps, flush),
                        warm_ms=timed_ms(run, device, reps))
             turns.append(row)
             log(f"ab {case.label} turn {turn} {name}: ms {row['ms']:.4f} "
-                f"(L2 flushed) warm_ms {row['warm_ms']:.4f}; "
-                f"{'equal' if equal else 'a part of the function'}")
+                f"(L2 flushed) warm_ms {row['warm_ms']:.4f}; equal")
     summary = []
     for case in cases:
         for name in libs:

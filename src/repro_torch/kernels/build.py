@@ -37,6 +37,8 @@ _I = ctypes.c_int
 #: C signature of every entry point: (argtypes, restype)
 SIGNATURES = {
     "census_fused_desc_launch": ([_P] * 11 + [_I] * 4 + [_P, _P], _I),
+    "census_fused_desc_probe_launch": ([_P] * 11 + [_I] * 4 + [_P] * 4,
+                                       _I),
     "census_fused_items_launch": ([_P] * 7 + [_I] + [_P, _P], _I),
     "tricode_hist_launch": ([_P, _I, _P, _P], _I),
     "pair_codes_launch": ([_P, _P, _P, _I, _P, _P], _I),

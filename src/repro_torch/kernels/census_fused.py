@@ -146,16 +146,13 @@ def tile_desc_ranges(anchors, desc_cum, num_valid, idx) -> TileRanges:
     return TileRanges(lo, hi, staged, live, from_stage)
 
 
-def census_fused_desc_kernel(indptr, packed, pair_u, pair_v, pair_code,
-                             desc_pair, desc_cum, desc_within0, anchors,
-                             num_valid, idx, orient: str,
-                             prune_self: bool) -> torch.Tensor:
-    """Launch the device-emission kernel on CUDA tensors.
-
-    Returns the zero-initialised-then-accumulated ``int32[67]`` output:
-    ``hist64`` then lanes [inter-asym, inter-mut, kept].  Launches on the
-    current stream and does not synchronise.
-    """
+def _launch_desc(indptr, packed, pair_u, pair_v, pair_code, desc_pair,
+                 desc_cum, desc_within0, anchors, num_valid, idx,
+                 orient: str, prune_self: bool, probe: bool):
+    """Launch ``census_fused_desc`` (or, with ``probe``, its instance
+    that also reports the branch each tile and lane took) on CUDA
+    tensors; returns the output and, with ``probe``, the int32 tile and
+    lane flags."""
     device, ptrs = _graph_pointers("census_fused_desc_kernel", indptr,
                                    packed, pair_u, pair_v, pair_code)
     num_descs = desc_pair.shape[0]
@@ -172,16 +169,69 @@ def census_fused_desc_kernel(indptr, packed, pair_u, pair_v, pair_code,
         build.require_vector("num_valid", num_valid, device, 1),
         build.require_vector("idx", idx, device),
     ]
+    num_items = idx.shape[0]
     keep_mode = _keep_mode(orient, prune_self)
     out = torch.zeros(OUT_WORDS, dtype=torch.int32, device=device)
+    flags = ()
+    if probe:
+        tiles = max(1, -(-num_items // BLOCK_ITEMS))
+        flags = (torch.full((tiles,), -1, dtype=torch.int32, device=device),
+                 torch.full((num_items,), -1, dtype=torch.int32,
+                            device=device))
     lib = build.load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.census_fused_desc_launch(
-            *ptrs, idx.shape[0], num_descs, num_anchors, keep_mode,
-            out.data_ptr(), stream)
+        entry = (lib.census_fused_desc_probe_launch if probe
+                 else lib.census_fused_desc_launch)
+        err = entry(*ptrs, num_items, num_descs, num_anchors, keep_mode,
+                    out.data_ptr(), *(f.data_ptr() for f in flags), stream)
     build.check(lib, err, "census_fused_desc")
-    return out
+    return out, *flags
+
+
+def census_fused_desc_kernel(indptr, packed, pair_u, pair_v, pair_code,
+                             desc_pair, desc_cum, desc_within0, anchors,
+                             num_valid, idx, orient: str,
+                             prune_self: bool) -> torch.Tensor:
+    """Launch the device-emission kernel on CUDA tensors.
+
+    Returns the zero-initialised-then-accumulated ``int32[67]`` output:
+    ``hist64`` then lanes [inter-asym, inter-mut, kept].  Launches on the
+    current stream and does not synchronise.
+    """
+    return _launch_desc(indptr, packed, pair_u, pair_v, pair_code,
+                        desc_pair, desc_cum, desc_within0, anchors,
+                        num_valid, idx, orient, prune_self, probe=False)[0]
+
+
+class DescProbe(NamedTuple):
+    """What ``census_fused_desc`` computed, and which branch it took."""
+
+    out: torch.Tensor          #: int32[67], as ``census_fused_desc_kernel``
+    tile_staged: torch.Tensor  #: per tile: it staged its lane table
+    lane_staged: torch.Tensor  #: per lane: resolved from its tile's stage
+
+
+def census_fused_desc_probe(indptr, packed, pair_u, pair_v, pair_code,
+                            desc_pair, desc_cum, desc_within0, anchors,
+                            num_valid, idx, orient: str,
+                            prune_self: bool) -> DescProbe:
+    """Run the device-emission kernel's body on CUDA tensors and report,
+    from the card, which branch each tile and each lane took.
+
+    A diagnostic beside the main launch (same kernel body, compiled once
+    more with the flags written): the tests and the smoke hold its flags
+    to :func:`tile_desc_ranges` (``staged`` and ``from_stage``) and its
+    output to the plain version.  Not a launch of the wrapper in
+    :mod:`repro_torch.kernels.ops`, and not counted as one.  Synchronises.
+    """
+    out, tiles, lanes = _launch_desc(
+        indptr, packed, pair_u, pair_v, pair_code, desc_pair, desc_cum,
+        desc_within0, anchors, num_valid, idx, orient, prune_self,
+        probe=True)
+    if bool((tiles < 0).any()) or bool((lanes < 0).any()):
+        raise RuntimeError("census_fused_desc probe left flags unwritten")
+    return DescProbe(out, tiles == 1, lanes == 1)
 
 
 def census_fused_kernel(indptr, packed, pair_u, pair_v, pair_code,

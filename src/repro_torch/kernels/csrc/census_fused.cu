@@ -11,18 +11,19 @@
 // Both share classify_fold(): the witness gather, the row search, the
 // tricode classification and the histogram fold.
 //
-// What bounds the desc kernel: neither HBM bandwidth nor the fold.  It
-// runs about 5.5x its byte bound, no faster on a graph that fits in L2
-// than on one that does not, and as fast without the global flush.  Each
+// What bounds the desc kernel: not HBM bandwidth.  It runs about 5.5x
+// its byte bound, no faster on a graph that fits in L2 than on one that
+// does not, and within 2 % warm of its time with the L2 flushed.  Each
 // lane walks a chain of dependent loads: in the first design some 20
 // gathers (anchor, ~5 descriptor probes, descriptor, pair u/v/code,
 // indptr reads, witness, ~log2(deg + 1) row probes, hit), although the
 // lanes of a 4,096-lane tile share at most a few hundred descriptors.
 // Staging what the lanes share, keeping two chains in flight and looking
 // descriptors up in a table took it from 0.216 to 0.192 ms on the
-// patents-size graph's first window; timing parts of the function showed
-// the rest spread over the stage itself, the lanes' resolution and fold,
-// and the row search, none dominant (PERF.md, section 6).
+// patents-size graph's first window.  Variants that each undo one step
+// are 0-19 % slower, and none removes most of what is left: the lanes'
+// own work -- resolution, witness, row search, fold -- beside the stage
+// (PERF.md, section 6).
 //
 // 1. The stage.  Tile k holds lanes [4096 k, 4096 (k + 1)); an in-order
 //    idx (the main path's) puts indices of anchors [a0, a1] there.  The
@@ -38,7 +39,9 @@
 //    other lane (a scattered idx, a window of tiny pairs past the
 //    capacity, a malformed window) resolves from global memory by the
 //    anchored search: same kernel, same function.
-//    kernels/census_fused.py tile_desc_ranges is this rule in torch.
+//    kernels/census_fused.py tile_desc_ranges is this rule in torch;
+//    census_fused_desc_probe_launch runs this kernel and reports which
+//    branch each tile and lane took, to hold the two to each other.
 // 2. The row search keeps the value at its upper bound, so the hit needs
 //    no load of its own.
 // 3. Each thread walks two items in lockstep, issuing their loads
@@ -388,11 +391,17 @@ __device__ __forceinline__ Item resolve_staged(const short* s_tab,
   return x;
 }
 
+// kProbe also records which branch ran: tile_staged[tile] whether the
+// tile staged its lane table, lane_staged[position] whether that lane
+// resolved from it (census_fused_desc_probe_launch; the main path runs
+// the kProbe = false instance, which writes neither).
+template <bool kProbe>
 __global__ void __launch_bounds__(kThreads)
 census_fused_desc(GraphArrays g, DescWindow win,
                   const int* __restrict__ num_valid_ptr,
                   const int* __restrict__ idx, int num_items, int keep_mode,
-                  int* __restrict__ out) {
+                  int* __restrict__ out, int* __restrict__ tile_staged,
+                  int* __restrict__ lane_staged) {
   __shared__ int s_cum[kStageDescs];
   __shared__ StagedDesc s_desc[kStageDescs];
   __shared__ int s_anchor[kStageAnchors];
@@ -426,6 +435,7 @@ census_fused_desc(GraphArrays g, DescWindow win,
                                  a0, a1, d0, d1 - d0);
   const int tab_lo = a0 * kAnchorStride;
   const int tab_hi = staged ? (a1 + 1) * kAnchorStride : tab_lo;
+  if (kProbe && threadIdx.x == 0) tile_staged[blockIdx.x] = staged;
 
   // each lane's index, read one round ahead
   const int num_valid = __ldg(num_valid_ptr);
@@ -448,11 +458,16 @@ census_fused_desc(GraphArrays g, DescWindow win,
 #pragma unroll
     for (int c = 0; c < kChains; ++c) {
       const int i = cur[c];
+      const bool valid = i >= 0 && i < num_valid;  // else padding: zero
+      const bool from_stage = valid && i >= tab_lo && i < tab_hi;
       it[c] = Item{};
-      if (i >= 0 && i < num_valid) {  // else a padding lane: exact zero
-        it[c] = i >= tab_lo && i < tab_hi
-                    ? resolve_staged(s_tab, s_cum, s_desc, tab_lo, i)
-                    : resolve_global(g, win, i);
+      if (valid) {
+        it[c] = from_stage ? resolve_staged(s_tab, s_cum, s_desc, tab_lo, i)
+                           : resolve_global(g, win, i);
+      }
+      if (kProbe) {
+        const int t = base + c * kThreads + threadIdx.x;
+        if (t < count) lane_staged[first + t] = from_stage;
       }
     }
     classify_fold(g.packed, it, keep_mode, s_acc, lanes);
@@ -503,6 +518,23 @@ int num_blocks(int num_items) {
   return blocks > 0 ? static_cast<int>(blocks) : 1;
 }
 
+template <bool kProbe>
+int launch_desc(const int* indptr, const int* packed, const int* pair_u,
+                const int* pair_v, const int* pair_code, const int* desc_pair,
+                const int* desc_cum, const int* desc_within0,
+                const int* anchors, const int* num_valid, const int* idx,
+                int num_items, int num_descs, int num_anchors, int keep_mode,
+                int* out, int* tile_staged, int* lane_staged, void* stream) {
+  const GraphArrays g{indptr, packed, pair_u, pair_v, pair_code};
+  const DescWindow win{desc_pair, desc_cum,  desc_within0,
+                       anchors,   num_descs, num_anchors};
+  census_fused_desc<kProbe><<<num_blocks(num_items), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      g, win, num_valid, idx, num_items, keep_mode, out, tile_staged,
+      lane_staged);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -517,13 +549,27 @@ int census_fused_desc_launch(const int* indptr, const int* packed,
                              const int* idx, int num_items, int num_descs,
                              int num_anchors, int keep_mode, int* out,
                              void* stream) {
-  const GraphArrays g{indptr, packed, pair_u, pair_v, pair_code};
-  const DescWindow win{desc_pair, desc_cum,  desc_within0,
-                       anchors,   num_descs, num_anchors};
-  census_fused_desc<<<num_blocks(num_items), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      g, win, num_valid, idx, num_items, keep_mode, out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_desc<false>(indptr, packed, pair_u, pair_v, pair_code,
+                            desc_pair, desc_cum, desc_within0, anchors,
+                            num_valid, idx, num_items, num_descs, num_anchors,
+                            keep_mode, out, nullptr, nullptr, stream);
+}
+
+// The same launch, from the same kernel body, that also reports which
+// branch ran: tile_staged int32[ceil(num_items / 4096)] (at least 1) and
+// lane_staged int32[num_items], both written in full.  A diagnostic: the
+// main path never calls it.
+int census_fused_desc_probe_launch(
+    const int* indptr, const int* packed, const int* pair_u,
+    const int* pair_v, const int* pair_code, const int* desc_pair,
+    const int* desc_cum, const int* desc_within0, const int* anchors,
+    const int* num_valid, const int* idx, int num_items, int num_descs,
+    int num_anchors, int keep_mode, int* out, int* tile_staged,
+    int* lane_staged, void* stream) {
+  return launch_desc<true>(indptr, packed, pair_u, pair_v, pair_code,
+                           desc_pair, desc_cum, desc_within0, anchors,
+                           num_valid, idx, num_items, num_descs, num_anchors,
+                           keep_mode, out, tile_staged, lane_staged, stream);
 }
 
 // out: zeroed int32[67] -- hist64, inter-asym, inter-mut (lane 66 stays 0).

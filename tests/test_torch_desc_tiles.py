@@ -9,7 +9,10 @@ search reads and the descriptor it lands on: the one the JAX package's
 ``expand_work_items`` gives it (the position of its pair in the window's
 ``desc_pair``).  A tile is reported as overflowing exactly when the
 smallest range covering its anchors exceeds the staging capacity, as a
-plain per-tile loop finds it.
+plain per-tile loop finds it.  The kernels' C entry points, the desc
+kernel's probe instance (which reports on the card the branch each tile
+and lane took) included, must match the ctypes signatures they are
+called through.
 """
 
 import re
@@ -27,7 +30,9 @@ from repro_torch.core.incremental import (affected_pair_ids,
 from repro_torch.core.planner import DESC_ANCHOR_STRIDE, split_device_words
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.census_fused import (BLOCK_ITEMS, STAGE_ANCHORS,
-                                              STAGE_DESCS, tile_desc_ranges)
+                                              STAGE_DESCS,
+                                              census_fused_desc_probe,
+                                              tile_desc_ranges)
 
 torch.set_num_threads(1)
 
@@ -240,3 +245,41 @@ def test_constants_match_the_kernel_source():
     assert constant("kAnchorStride") == DESC_ANCHOR_STRIDE
     assert "kStageAnchors = kBlockItems / kAnchorStride + 2" in source
     assert STAGE_ANCHORS == BLOCK_ITEMS // DESC_ANCHOR_STRIDE + 2
+
+
+def c_entry_points():
+    """Each ``extern "C"`` function of the kernel sources: name -> its
+    parameter count."""
+    found = {}
+    for src in build.SOURCES:
+        text = src.read_text()
+        text = text[text.index('extern "C" {'):]
+        for name, params in re.findall(
+                r"^(?:int|const char\*) (\w+)\(([^)]*)\)", text, re.M):
+            found[name] = len(params.split(","))
+    return found
+
+
+@pytest.mark.parametrize("name", sorted(build.SIGNATURES))
+def test_signatures_match_the_kernel_sources(name):
+    """ctypes declares every entry point with the source's arity, the
+    probe instance of the desc kernel included."""
+    assert c_entry_points()[name] == len(build.SIGNATURES[name][0])
+
+
+def test_every_entry_point_is_declared():
+    assert set(c_entry_points()) == set(build.SIGNATURES)
+
+
+def test_probe_needs_the_card():
+    """The branch report comes from the kernel only: on CPU tensors the
+    probe raises, and there is no plain version to stand in for it."""
+    ck = rt.PlanChunker(rt.paper_workload("orkut", 250, 12.0, seed=0),
+                        4096)
+    nv, dp, dc, dw, an = (torch.from_numpy(a) for a in split_device_words(
+        ck.descriptors(0).device_words(), ck.num_anchors))
+    graph = [torch.from_numpy(a) for a in ck.device_arrays()]
+    idx = torch.arange(ck.chunk_shape, dtype=torch.int32)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        census_fused_desc_probe(*graph, dp, dc, dw, an, nv, idx, "none",
+                                True)

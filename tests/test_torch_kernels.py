@@ -19,7 +19,9 @@ from repro_torch.core.incremental import (affected_pair_ids,
                                           subset_descriptor_windows)
 from repro_torch.core.planner import split_device_words
 from repro_torch.kernels import ops
-from repro_torch.kernels.census_fused import BLOCK_ITEMS, tile_desc_ranges
+from repro_torch.kernels.census_fused import (BLOCK_ITEMS,
+                                             census_fused_desc_probe,
+                                             tile_desc_ranges)
 
 pytestmark = pytest.mark.cuda
 
@@ -131,19 +133,35 @@ def desc_windows(ck, device):
         yield split_device_words(words.to(device), ck.num_anchors)
 
 
+def hold_branches(graph, window, idx, orient, prune_self, want):
+    """Run the kernel's probe on one window: its output must equal
+    ``want`` and the branch it took per tile and per lane the staging
+    rule's; returns the lanes it resolved from a stage."""
+    nv, dp, dc, dw, an = window
+    probe = census_fused_desc_probe(*graph, dp, dc, dw, an, nv, idx,
+                                    orient, prune_self)
+    assert_same((probe.out[:64], probe.out[64:]), want)
+    rule = tile_desc_ranges(an, dc, nv, idx)
+    assert torch.equal(probe.tile_staged, rule.staged)
+    assert torch.equal(probe.lane_staged, rule.from_stage)
+    return int(probe.lane_staged.sum())
+
+
 def hold_desc_windows(graph, windows, idx, orient, prune_self,
                       search_iters, desc_iters):
-    """Every window against the plain version on the same CUDA tensors;
-    returns the valid lanes, and those the kernel's rule resolves from a
-    stage."""
+    """Every window against the plain version on the same CUDA tensors,
+    and the branches the kernel took against the staging rule; returns
+    the valid lanes, and those the kernel resolved from a stage."""
     valid = staged = 0
-    for nv, dp, dc, dw, an in windows:
+    for window in windows:
+        nv, dp, dc, dw, an = window
         args = (*graph, dp, dc, dw, an, nv, idx, search_iters, desc_iters,
                 orient, prune_self)
-        assert_same(ops.fused_census_desc_partials(*args),
-                    ops.fused_census_desc_partials_ref(*args))
+        want = ops.fused_census_desc_partials_ref(*args)
+        assert_same(ops.fused_census_desc_partials(*args), want)
         valid += int(((idx >= 0) & (idx < nv)).sum())
-        staged += int(tile_desc_ranges(an, dc, nv, idx).from_stage.sum())
+        staged += hold_branches(graph, window, idx, orient, prune_self,
+                                want)
     return valid, staged
 
 
@@ -210,7 +228,8 @@ def test_fused_desc_subset_windows(cuda, orient, prune_self):
 def test_fused_desc_inexact_anchors(cuda):
     """Anchors that undershoot (not the last descriptor at their index):
     the kernel keeps the anchored search's answer, wherever the plain
-    version's gathers stay in bounds (checked on the CPU first)."""
+    version's gathers stay in bounds (checked on the CPU first), and
+    leaves the tiles over such anchors unstaged."""
     g = rt.paper_workload("webgraph", 400, 6.0, seed=0)
     ck = rt.PlanChunker(g, 20_000)
     graph = [torch.from_numpy(a) for a in ck.device_arrays()]
@@ -227,9 +246,12 @@ def test_fused_desc_inexact_anchors(cuda):
                 want = ops.fused_census_desc_partials_ref(*args, *rest)
             except IndexError:
                 continue            # a slot past the packed array
-            got = ops.fused_census_desc_partials(
-                *(t.to(cuda) for t in args), *rest)
-            assert_same(got, want)
+            on_card = [t.to(cuda) for t in args]
+            assert_same(ops.fused_census_desc_partials(*on_card, *rest),
+                        want)
+            dp_c, dc_c, dw_c, an_c, nv_c, idx_c = on_card[5:]
+            hold_branches(on_card[:5], (nv_c, dp_c, dc_c, dw_c, an_c),
+                          idx_c, "none", True, want)
             held += 1
     assert held > 0
 
