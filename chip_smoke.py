@@ -21,7 +21,12 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    16,500-arc citation delta on the unedited patents-size graph), each
    with the share of its tiles and lanes on the staged branch, as the
    kernel's probe instance reports them from the card and held to the
-   staging rule ``tile_desc_ranges``;
+   staging rule ``tile_desc_ranges``; the host-item kernel at the same
+   three windows as host items (the subset window's pairs in a session's
+   order), each with its staged tiles, runs and lanes and its tiles'
+   clock cycles per phase from its probe instance, held to
+   ``tile_item_stage``; the histogram with the device operations its
+   timed call holds (from a trace) and how skewed its bins are;
 3. runs the main path at real size: ``CensusEngine(backend="fused")
    .run(g, max_items=2**24)`` with device emission on a graph the size of
    the US-patents citation graph (3,774,768 nodes, ~15.5M arcs), for both
@@ -54,12 +59,14 @@ plain versions (no build, no device numbers) and never prints a result;
 it checks the script's own control flow before a run on the card.
 
 ``--ab A.cu [B.cu ...]`` runs none of the phases: it builds the kernel
-library once more for each given version of ``census_fused.cu`` and
-times each version's desc kernel against the package's, in turns, at the
-desc kernel's three measured windows (same card, same call), holding
-every launch to the plain version bit for bit::
+library once more for each given version of one of the CUDA sources --
+the ``csrc`` file whose name the version's name is or ends with, as in
+``build/ab/parent-census_fused.cu`` -- and times each kernel of that file
+whose C entry kept its parameters against the package's, in turns, at
+the kernel's measured windows (same card, same call), holding every
+launch to the plain version bit for bit::
 
-    python3 chip_smoke.py --ab build/ab/parent.cu
+    python3 chip_smoke.py --ab build/ab/parent-census_fused.cu
 """
 
 from __future__ import annotations
@@ -246,20 +253,46 @@ def desc_case(label, chunker, words, device, orient) -> DescCase:
                     (chunker.space.search_iters, chunker.desc_iters), orient)
 
 
-def desc_cases(g, hub, device, max_items: int, session_k: int):
-    """The desc kernel's measured windows: window 0 of the main graph
-    (orient "none"), window 0 of the hub graph (orient "degree"), and a
-    session-style subset window: the first of the windows over the main
-    graph's pairs that a ``session_k``-arc citation delta (seed
-    ``SESSION_WINDOW_SEED``) touches, as a session's update recounts the
-    old graph's affected pairs first.  Returns the cases and the main
-    graph's chunker."""
+class ItemCase(NamedTuple):
+    """One window of host-emitted items of the items kernel, on the card."""
+
+    label: str
+    graph: tuple          # indptr, packed, pair_u, pair_v, pair_code
+    sp: object            # item_sp words
+    pv: object            # item_pv words
+    search_iters: int
+    orient: str
+
+    def args(self):
+        return (*self.graph, self.sp, self.pv, self.search_iters)
+
+
+def item_case(label, chunker, sp, pv, device, orient) -> ItemCase:
+    import torch
+    return ItemCase(label, graph_tensors(chunker, device),
+                    torch.from_numpy(sp).to(device),
+                    torch.from_numpy(pv).to(device),
+                    chunker.space.search_iters, orient)
+
+
+def measured_windows(g, hub, device, max_items: int, session_k: int):
+    """The kernels' measured windows.  For the desc kernel: window 0 of
+    the main graph (orient "none"), window 0 of the hub graph (orient
+    "degree"), and a session-style subset window: the first of the
+    windows over the main graph's pairs that a ``session_k``-arc citation
+    delta (seed ``SESSION_WINDOW_SEED``) touches, as a session's update
+    recounts the old graph's affected pairs first.  For the items kernel
+    the same three as host items: window 0 of each graph as the chunker
+    emits it, and the items of the subset window's pairs in the order a
+    session emits them (``emit_items_for_pairs``).  Returns the desc
+    cases, the item cases and the main graph's chunker."""
     import repro_torch as rt
     from repro_torch import PlanChunker
     from repro_torch.core.engine import _desc_capacity
     from repro_torch.core.incremental import (affected_pair_ids,
                                               subset_descriptor_windows)
-    from repro_torch.core.planner import max_pairs_per_window
+    from repro_torch.core.planner import (emit_items_for_pairs,
+                                          max_pairs_per_window, pad_and_pack)
     chunker = PlanChunker(g, max_items)
     hub_chunker = PlanChunker(hub, max_items, orient="degree")
     _, delta = rt.apply_delta(g, *citation_delta(
@@ -269,15 +302,29 @@ def desc_cases(g, hub, device, max_items: int, session_k: int):
         space, affected_pair_ids(space, delta.touched), lanes,
         _desc_capacity(lanes, max_pairs_per_window(space.offsets, lanes)),
         chunker.num_anchors))
-    return [
+    label = f"subset-k{session_k}-w0"
+    desc = [
         desc_case("patents-w0", chunker,
                   chunker.descriptors(0).device_words(), device, "none"),
         desc_case("orkut-hub-w0", hub_chunker,
                   hub_chunker.descriptors(0).device_words(), device,
                   "degree"),
-        desc_case(f"subset-k{session_k}-w0", chunker,
-                  session_win.device_words(), device, "none"),
-    ], chunker
+        desc_case(label, chunker, session_win.device_words(), device,
+                  "none"),
+    ]
+    first, hub_first = chunker.chunk(0), hub_chunker.chunk(0)
+    pair, slot, side = emit_items_for_pairs(
+        space, session_win.desc_pair[:session_win.num_descs])
+    session_words = pad_and_pack(pair, slot, side,
+                                 max(lanes, pair.shape[0]))
+    items = [
+        item_case("patents-w0", chunker, first.item_sp, first.item_pv,
+                  device, "none"),
+        item_case("orkut-hub-w0", hub_chunker, hub_first.item_sp,
+                  hub_first.item_pv, device, "degree"),
+        item_case(label, chunker, *session_words, device, "none"),
+    ]
+    return desc, items, chunker
 
 
 def desc_branches(case: DescCase, want) -> tuple:
@@ -346,6 +393,85 @@ def desc_work(case: DescCase, want) -> dict:
                                else "the rule (no kernel)"))
 
 
+def item_branches(case: ItemCase, want) -> dict:
+    """Which branch the items kernel took on ``case``: on the card, its
+    probe instance's per-tile and per-lane flags, held to the staging
+    rule ``tile_item_stage`` and its output to the plain version's
+    ``want``; on the CPU (rehearsal, no kernel) the rule's."""
+    import torch
+    from repro_torch.kernels.census_fused import (census_fused_items_probe,
+                                                  tile_item_stage)
+    indptr, _, pair_u, pair_v, _ = case.graph
+    rule = tile_item_stage(case.pv, indptr, pair_u, pair_v)
+    tile_staged, lane_staged = rule.staged, rule.from_stage
+    on_card = case.pv.device.type == "cuda"
+    cycles = None
+    if on_card:
+        probe = census_fused_items_probe(*case.graph, case.sp, case.pv)
+        require(torch.equal(probe.out[:64], want[0])
+                and torch.equal(probe.out[64:66], want[1]),
+                f"items kernel probe != plain version at {case.label}")
+        require(torch.equal(probe.tile_staged, rule.staged),
+                f"items kernel staged other tiles than its rule at "
+                f"{case.label}")
+        require(torch.equal(probe.lane_staged, rule.from_stage),
+                f"items kernel resolved other lanes from staged rows than "
+                f"its rule at {case.label}")
+        tile_staged, lane_staged = probe.tile_staged, probe.lane_staged
+        # mean SM clock cycles of a tile holding a valid lane, per phase
+        cycles = [float(x) for x in
+                  probe.cycles[rule.live].double().mean(0).tolist()]
+    return dict(tiles=int(rule.live.sum()),
+                staged_tiles=int((rule.live & tile_staged).sum()),
+                runs=int(rule.runs.sum()),
+                staged_runs=int(rule.staged_runs.sum()),
+                staged_words=int(rule.words.sum()),
+                staged_lanes=int(lane_staged.sum()), tile_cycles=cycles,
+                branches_from=("the card" if on_card
+                               else "the rule (no kernel)"))
+
+
+def items_work(case: ItemCase, want) -> dict:
+    """What a window of host items must do, from its data: the bytes and
+    the int32 operations of its bound; and how the kernel split its
+    tiles (``item_branches``)."""
+    import torch
+    indptr, _, pair_u, pair_v, _ = case.graph
+    side, pair = case.sp & 1, case.pv >> 1
+    valid = (case.pv & 1) == 1
+    other = torch.where(side == 0, pair_v[pair], pair_u[pair])
+    probes = float(ceil_log2_plus1(indptr[other + 1] - indptr[other])[
+        valid].sum())
+    n_items = int(valid.sum())
+    # words read: every item_pv word, item_sp of the valid items, the
+    # graph words of their pairs; then the 67 output words
+    nwords = (case.pv.numel() + n_items + graph_words_read(
+        indptr, pair_u, pair_v, torch.unique(pair[valid])) + 67)
+    b, by = bound_ms(4 * nwords, probes + n_items)
+    return dict(bound_ms=b, bound_by=by, bound_bytes=4 * nwords,
+                lanes=case.pv.numel(), valid_lanes=n_items,
+                **item_branches(case, want))
+
+
+def device_ops(fn, device) -> list[str]:
+    """The device operations (kernels, memsets, copies) of one call of
+    ``fn``, in order, from a ``torch.profiler`` trace; none on the CPU."""
+    import torch
+    from torch.autograd import DeviceType
+    if device.type != "cuda":
+        return []
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in sorted(
+        (e for e in prof.events() if e.device_type == DeviceType.CUDA),
+        key=lambda e: e.time_range.start)]
+
+
 def kernel_phase(g, hub, device, max_items: int, session_k: int,
                  reps: int) -> list[dict]:
     """Each kernel against its plain version at main-path shapes: the
@@ -355,10 +481,10 @@ def kernel_phase(g, hub, device, max_items: int, session_k: int,
     from repro_torch.core import census
     from repro_torch.kernels import ops
 
-    cases, chunker = desc_cases(g, hub, device, max_items, session_k)
+    cases, item_cases, chunker = measured_windows(g, hub, device, max_items,
+                                                  session_k)
     space = chunker.space
     graph = cases[0].graph
-    indptr, packed, pair_u, pair_v, pair_code = graph
     iters = cases[0].iters
     lanes = chunker.chunk_shape
     # overwritten before each cold launch: 128 MB, past the 50 MB L2
@@ -422,40 +548,49 @@ def kernel_phase(g, hub, device, max_items: int, session_k: int,
                                 "lanes", "valid_lanes")},
         windows=windows))
 
-    # 2. fused host-item kernel, on the same window emitted as host items
-    chunk = chunker.chunk(0)
-    sp = torch.from_numpy(chunk.item_sp).to(device)
-    pv = torch.from_numpy(chunk.item_pv).to(device)
-    item_slot, item_side = sp >> 1, sp & 1
-    item_pair, item_valid = pv >> 1, (pv & 1) == 1
-    other_h = torch.where(item_side == 0, pair_v[item_pair],
-                          pair_u[item_pair])
-    probes_h = float(ceil_log2_plus1(
-        indptr[other_h + 1] - indptr[other_h])[item_valid].sum())
-    n_items = int(item_valid.sum())
+    # 2. fused host-item kernel, at the same three windows as host items
+    item_windows = []
+    for case in item_cases:
+        def items_kernel(case=case):
+            return ops.fused_census_partials(*case.args())
 
-    def items_kernel():
-        return ops.fused_census_partials(*graph, sp, pv, iters[0])
+        def items_plain(case=case):
+            return ops.fused_census_partials_ref(*case.args())
 
-    def items_plain():
-        return ops.fused_census_partials_ref(*graph, sp, pv, iters[0])
-
-    got, want = items_kernel(), items_plain()
-    err = max_abs_err(got, want)
-    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-            f"fused item kernel != plain version: {got} vs {want}")
-    # words read: every item_pv word, item_sp of the valid items, the
-    # graph words of their pairs; then the 67 output words
-    nwords = (sp.numel() + n_items + graph_words_read(
-        indptr, pair_u, pair_v, torch.unique(item_pair[item_valid])) + 67)
-    b, by = bound_ms(4 * nwords, probes_h + n_items)
+        got, want = items_kernel(), items_plain()
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                f"fused item kernel != plain version at {case.label}: "
+                f"{got} vs {want}")
+        item_windows.append(dict(
+            window=case.label, orient=case.orient,
+            max_abs_err=max_abs_err(got, want),
+            **timings(items_kernel, items_plain), **items_work(case, want)))
+    for w in item_windows:
+        log(f"kernel fused_census_partials at {w['window']} (orient "
+            f"{w['orient']}): ms {w['ms']:.4f} (L2 flushed) warm_ms "
+            f"{w['warm_ms']:.4f} plain_ms {w['plain_ms']:.4f} bound_ms "
+            f"{w['bound_ms']:.4f} ({w['bound_by']}, {w['bound_bytes']} "
+            f"bytes) lanes {w['lanes']} valid {w['valid_lanes']}; staged "
+            f"tiles {w['staged_tiles']} of {w['tiles']} "
+            f"({w['staged_tiles'] / max(w['tiles'], 1):.4%}), runs with "
+            f"staged rows {w['staged_runs']} of {w['runs']} "
+            f"({w['staged_runs'] / max(w['runs'], 1):.4%}, by the rule), "
+            f"valid lanes resolved from staged rows {w['staged_lanes']} "
+            f"({w['staged_lanes'] / max(w['valid_lanes'], 1):.4%}), as "
+            f"{w['branches_from']} reports; mean SM cycles of a tile: "
+            + ("not measured" if w["tile_cycles"] is None else
+               "runs and records {:.0f}, rows {:.0f}, lanes {:.0f} (probe "
+               "instance)".format(*w["tile_cycles"])))
+    head = item_windows[0]
     records.append(dict(
         name="fused_census_partials", route="cuda",
         source="src/repro_torch/kernels/csrc/census_fused.cu",
-        replaces="src/repro/kernels/census_fused.py:150",
-        launches=0, max_abs_err=err, **timings(items_kernel, items_plain),
-        bound_ms=b, bound_by=by, bound_bytes=4 * nwords,
-        lanes=int(sp.numel()), valid_lanes=n_items))
+        replaces="src/repro/kernels/census_fused.py:150", launches=0,
+        max_abs_err=max(w["max_abs_err"] for w in item_windows),
+        **{k: head[k] for k in ("ms", "plain_ms", "library_ms", "warm_ms",
+                                "bound_ms", "bound_by", "bound_bytes",
+                                "lanes", "valid_lanes")},
+        windows=item_windows))
 
     # 3. histogram kernel, on window 0's classified tricodes
     tricode, count_mask, _, _ = census.classify_items(
@@ -486,7 +621,17 @@ def kernel_phase(g, hub, device, max_items: int, session_k: int,
         launches=0, max_abs_err=err,
         **timings(hist_kernel, hist_plain, hist_library),
         bound_ms=b, bound_by=by, bound_bytes=5 * w + 4 * 64,
-        lanes=w, valid_lanes=int(count_mask.sum())))
+        lanes=w, valid_lanes=int(count_mask.sum()),
+        nonzero_bins=int((got > 0).sum()), top_bin=int(got.argmax()),
+        top_bin_share=int(got.max()) / max(int(got.sum()), 1),
+        call_ops=device_ops(hist_kernel, device)))
+    h = records[-1]
+    log(f"kernel tricode_histogram: codes {tricode.dtype}, mask "
+        f"{count_mask.dtype}; the timed call ops.tricode_histogram holds "
+        f"{len(h['call_ops'])} device operations {h['call_ops']} (one "
+        f"traced call); {h['valid_lanes']} of {w} items counted into "
+        f"{h['nonzero_bins']} non-zero bins, top bin {h['top_bin']} with "
+        f"{h['top_bin_share']:.4%} of them")
     # 4. pair_codes, on tiles of window 0's row pairs, and at the same B on
     # random tiles where most queries hit: keys repeat within a row and
     # fill all 128 lanes, and full-range codes make the sums wrap
@@ -540,85 +685,164 @@ def kernel_phase(g, hub, device, max_items: int, session_k: int,
     return records, (q, k, kc, want)
 
 
-def desc_launch(lib, case: DescCase):
-    """A call of ``census_fused_desc`` from the kernel library ``lib`` on
-    ``case`` (the launch ``ops.fused_census_desc_partials`` makes, for a
-    library built from other sources)."""
+def lib_launch(entry: str, args, out_words: int, device, split=None):
+    """A call of the C entry ``entry`` of a kernel library on device
+    tensors ``args`` (pointers) and integer arguments, as the wrappers
+    make it; ``run(lib)`` returns the output split as the wrapper
+    returns it."""
     import torch
     from repro_torch.kernels import build
-    from repro_torch.kernels.census_fused import OUT_WORDS, _keep_mode
-    nv, dp, dc, dw, an = case.window
-    ptrs = [t.data_ptr()
-            for t in (*case.graph, dp, dc, dw, an, nv, case.idx)]
-    keep_mode = _keep_mode(case.orient, True)
 
-    def run():
-        out = torch.zeros(OUT_WORDS, dtype=torch.int32,
-                          device=case.idx.device)
-        err = lib.census_fused_desc_launch(
-            *ptrs, case.idx.numel(), dp.numel(), an.numel(), keep_mode,
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-        build.check(lib, err, "census_fused_desc")
-        return out[:64], out[64:]
+    def run(lib):
+        out = torch.zeros(out_words, dtype=torch.int32, device=device)
+        vals = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+                for a in args]
+        err = getattr(lib, entry)(*vals, out.data_ptr(),
+                                  torch.cuda.current_stream().cuda_stream)
+        build.check(lib, err, entry)
+        return split(out) if split else (out,)
     return run
+
+
+def ab_kernels(target: str, g, hub, device, max_items: int,
+               session_k: int) -> list:
+    """The timed calls of the kernels of ``csrc/<target>``: (C entry,
+    window label, plain version's output, ``run(lib)``)."""
+    import torch
+    from repro_torch.core import census
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.census_fused import OUT_WORDS, _keep_mode
+    desc, items, chunker = measured_windows(g, hub, device, max_items,
+                                            session_k)
+    calls = []
+    if target == "census_fused.cu":
+        for case in desc:
+            nv, dp, dc, dw, an = case.window
+            calls.append((
+                "census_fused_desc_launch", case.label,
+                ops.fused_census_desc_partials_ref(*case.args()),
+                lib_launch("census_fused_desc_launch",
+                           (*case.graph, dp, dc, dw, an, nv, case.idx,
+                            case.idx.numel(), dp.numel(), an.numel(),
+                            _keep_mode(case.orient, True)),
+                           OUT_WORDS, device, lambda o: (o[:64], o[64:]))))
+        for case in items:
+            calls.append((
+                "census_fused_items_launch", case.label,
+                ops.fused_census_partials_ref(*case.args()),
+                lib_launch("census_fused_items_launch",
+                           (*case.graph, case.sp, case.pv, case.sp.numel()),
+                           OUT_WORDS, device, lambda o: (o[:64], o[64:66]))))
+    elif target == "tricode_hist.cu":
+        case = desc[0]
+        nv, dp, dc, dw, an = case.window
+        indptr, _, pair_u, pair_v, _ = case.graph
+        expanded = census.expand_work_items(
+            indptr, pair_u, pair_v, dp, dc, dw, an, nv, case.idx,
+            case.iters[1])
+        tricode, mask, _, _ = census.classify_items(
+            *case.graph, *expanded, case.iters[0])
+        tricode = tricode.to(torch.int32).contiguous()
+        calls.append((
+            "tricode_hist_launch", case.label,
+            (ops.tricode_histogram_ref(torch.where(mask, tricode, 64)),),
+            lib_launch("tricode_hist_launch",
+                       (tricode, mask, tricode.numel()), 64, device)))
+    elif target == "pair_codes.cu":
+        q, k, kc = (torch.from_numpy(t).to(device)
+                    for t in pair_code_tiles(g, chunker, PAIR_CODE_ROWS))
+        calls.append((
+            "pair_codes_launch", "patents-w0",
+            (pair_codes_blocks(q, k, kc).reshape(-1),),
+            lib_launch("pair_codes_launch", (q, k, kc, q.shape[0]),
+                       q.numel(), device)))
+    return calls
+
+
+def c_entry_arity(source: Path) -> dict:
+    """Each ``extern "C"`` function of a kernel source: name -> its
+    parameter count."""
+    import re
+    text = source.read_text()
+    text = text[text.index('extern "C" {'):]
+    return {name: len(params.split(",")) for name, params in re.findall(
+        r"^(?:int|const char\*) (\w+)\(([^)]*)\)", text, re.M)}
 
 
 def ab_phase(g, hub, device, max_items: int, session_k: int, sources,
              reps: int) -> None:
-    """Time ``census_fused_desc`` built from each of ``sources`` (other
-    versions of ``csrc/census_fused.cu``) against the package's own, in
-    turns -- the package's, each source, each source again in reverse
-    order, the package's -- at the kernel phase's windows, with the L2
-    flushed and warm.  Every launch is held to the plain version bit for
-    bit.  Prints one line per turn, then the mean of each library's turns
-    per window as one JSON object."""
+    """Time the kernels of other versions of the package's CUDA sources
+    against the package's own, in turns -- the package's, each version,
+    each version again in reverse order, the package's -- with the L2
+    flushed and warm.  A version replaces the ``csrc`` file whose name
+    its own name is or ends with (``census_fused.cu``,
+    ``parent-census_fused.cu``); every kernel of that file whose C entry
+    kept its parameter count is timed at its measured windows (the desc
+    and the items kernel at three each), and every launch is held to the
+    plain version bit for bit.  Prints one line per turn, then the mean
+    of each library's turns per kernel and window as one JSON object."""
     import torch
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import build
+    package = {s.name: s for s in build.SOURCES}
+    targets = {}
+    for src in sources:
+        names = [n for n in package if src.name == n
+                 or src.name.endswith("-" + n)]
+        if not names:
+            raise SystemExit(f"--ab {src}: its name is none of, and ends "
+                             f"in '-' and none of, {sorted(package)}")
+        targets[str(src)] = names[0]
     libs = {"package": build.SOURCES}
     for src in sources:
-        libs[src.stem] = tuple(src.resolve() if s.name == "census_fused.cu"
+        libs[str(src)] = tuple(src.resolve() if s.name == targets[str(src)]
                                else s for s in build.SOURCES)
     for name, srcs in libs.items():
-        log_desc_ptxas(name, build.build(srcs).parent / "build.log")
-    cases, _ = desc_cases(g, hub, device, max_items, session_k)
+        log_ptxas(name, build.build(srcs).parent / "build.log")
     flush = torch.empty(2**25, dtype=torch.int32, device=device)
-    names = list(libs)[1:]
-    order = ["package", *names, *reversed(names), "package"]
     turns = []
-    for case in cases:
-        want = ops.fused_census_desc_partials_ref(*case.args())
-        for turn, name in enumerate(order):
-            run = desc_launch(build.load_library(libs[name]), case)
-            got = run()
-            require(torch.equal(got[0], want[0])
-                    and torch.equal(got[1], want[1]),
-                    f"{name} census_fused_desc != plain at {case.label}")
-            row = dict(window=case.label, lib=name, turn=turn,
-                       ms=timed_ms(run, device, reps, flush),
-                       warm_ms=timed_ms(run, device, reps))
-            turns.append(row)
-            log(f"ab {case.label} turn {turn} {name}: ms {row['ms']:.4f} "
-                f"(L2 flushed) warm_ms {row['warm_ms']:.4f}; equal")
+    for target in sorted(set(targets.values())):
+        names = [n for n, t in targets.items() if t == target]
+        mine = c_entry_arity(package[target])
+        for entry, label, want, run in ab_kernels(
+                target, g, hub, device, max_items, session_k):
+            kept = [n for n in names
+                    if c_entry_arity(Path(n)).get(entry) == mine[entry]]
+            for n in sorted(set(names) - set(kept)):
+                log(f"ab {n}: {entry} has another C interface; not timed")
+            order = ["package", *kept, *reversed(kept), "package"]
+            for turn, name in enumerate(order):
+                lib = build.load_library(libs[name])
+                got = run(lib)
+                require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                        f"{name} {entry} != plain at {label}")
+                row = dict(entry=entry, window=label, lib=name, turn=turn,
+                           ms=timed_ms(lambda: run(lib), device, reps,
+                                       flush),
+                           warm_ms=timed_ms(lambda: run(lib), device, reps))
+                turns.append(row)
+                log(f"ab {entry} {label} turn {turn} {name}: ms "
+                    f"{row['ms']:.4f} (L2 flushed) warm_ms "
+                    f"{row['warm_ms']:.4f}; equal")
     summary = []
-    for case in cases:
-        for name in libs:
-            mine = [t for t in turns
-                    if t["window"] == case.label and t["lib"] == name]
-            summary.append(dict(
-                window=case.label, lib=name,
-                ms=sum(t["ms"] for t in mine) / len(mine),
-                warm_ms=sum(t["warm_ms"] for t in mine) / len(mine)))
+    for key in dict.fromkeys((t["entry"], t["window"], t["lib"])
+                             for t in turns):
+        rows = [t for t in turns
+                if (t["entry"], t["window"], t["lib"]) == key]
+        summary.append(dict(
+            entry=key[0], window=key[1], lib=key[2],
+            ms=sum(t["ms"] for t in rows) / len(rows),
+            warm_ms=sum(t["warm_ms"] for t in rows) / len(rows)))
     print(json.dumps({"ab": summary}))
 
 
-def log_desc_ptxas(name: str, build_log: Path) -> None:
-    """Log ptxas' resource line for ``census_fused_desc`` in a build log."""
+def log_ptxas(name: str, build_log: Path) -> None:
+    """Log ptxas' resource line of every kernel in a build log."""
     current = ""
     for line in build_log.read_text().splitlines():
         if "Compiling entry function" in line:
-            current = line
-        elif "Used" in line and "census_fused_desc" in current:
-            log(f"ab {name} census_fused_desc ptxas: {line.strip()}")
+            current = line.split("'")[1] if "'" in line else line
+        elif "Used" in line:
+            log(f"ab {name} ptxas {current}: {line.strip()}")
 
 
 def pair_codes_blocks(q, k, kc):
@@ -972,13 +1196,13 @@ def main(argv=None) -> int:
     parser.add_argument("--rehearse", action="store_true",
                         help="toy sizes on the CPU, plain versions only; "
                              "prints no result")
-    parser.add_argument("--ab", nargs="+", type=Path,
-                        metavar="CENSUS_FUSED_CU",
-                        help="instead of the phases: time census_fused_desc"
-                             " built from each given census_fused.cu "
-                             "against the package's, in turns, at the "
-                             "kernel phase's windows (on the card); "
-                             "prints no result")
+    parser.add_argument("--ab", nargs="+", type=Path, metavar="CU",
+                        help="instead of the phases: time the kernels of "
+                             "each given version of a csrc/*.cu (named as "
+                             "that file, or ending in '-' and its name) "
+                             "against the package's, in turns, at their "
+                             "measured windows (on the card); prints no "
+                             "result")
     args = parser.parse_args(argv)
     if args.ab and args.rehearse:
         parser.error("--ab runs on the card only")

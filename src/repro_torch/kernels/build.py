@@ -40,7 +40,8 @@ SIGNATURES = {
     "census_fused_desc_probe_launch": ([_P] * 11 + [_I] * 4 + [_P] * 4,
                                        _I),
     "census_fused_items_launch": ([_P] * 7 + [_I] + [_P, _P], _I),
-    "tricode_hist_launch": ([_P, _I, _P, _P], _I),
+    "census_fused_items_probe_launch": ([_P] * 7 + [_I] + [_P] * 5, _I),
+    "tricode_hist_launch": ([_P, _P, _I, _P, _P], _I),
     "pair_codes_launch": ([_P, _P, _P, _I, _P, _P], _I),
     "repro_torch_error_string": ([_I], ctypes.c_char_p),
 }
@@ -107,12 +108,16 @@ def build(sources: tuple[Path, ...] = SOURCES) -> Path:
 @functools.lru_cache(maxsize=None)
 def load_library(sources: tuple[Path, ...] = SOURCES) -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with every entry
-    point's ``argtypes``/``restype`` declared."""
+    point's ``argtypes``/``restype`` declared (a library built from
+    other versions of the sources may lack some)."""
     lib = ctypes.CDLL(str(build(sources)))
     for name, (argtypes, restype) in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = restype
+        fn = getattr(lib, name, None)
+        if fn is None and sources == SOURCES:
+            raise RuntimeError(f"the kernel library lacks {name}")
+        if fn is not None:  # another version of a source may lack it
+            fn.argtypes = argtypes
+            fn.restype = restype
     return lib
 
 

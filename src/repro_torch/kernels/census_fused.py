@@ -32,6 +32,12 @@ BLOCK_ITEMS = 4096
 STAGE_DESCS = 512
 STAGE_ANCHORS = BLOCK_ITEMS // DESC_ANCHOR_STRIDE + 2
 
+#: the items kernel's staging capacity per block: run records (runs of
+#: lanes of one pair), and row-buffer words (both rows of each staged
+#: run's pair)
+STAGE_RUNS = 512
+STAGE_WORDS = 4096
+
 #: the packed-CSR sentinel of the JAX package (larger than any entry, so a
 #: padded row tail stays sorted and unmatchable); the CUDA searches take
 #: explicit row bounds and never read past a row, so nothing is padded
@@ -234,14 +240,77 @@ def census_fused_desc_probe(indptr, packed, pair_u, pair_v, pair_code,
     return DescProbe(out, tiles == 1, lanes == 1)
 
 
-def census_fused_kernel(indptr, packed, pair_u, pair_v, pair_code,
-                        item_sp, item_pv) -> torch.Tensor:
-    """Launch the host-emission kernel on CUDA tensors.
+class ItemStage(NamedTuple):
+    """How ``census_fused_items`` splits a launch's lanes."""
 
-    Returns the ``int32[67]`` output: ``hist64`` then lanes [inter-asym,
-    inter-mut, 0].  Zero item words are padding.  Launches on the current
-    stream and does not synchronise.
+    runs: torch.Tensor        #: per tile: runs of valid lanes of one pair
+    staged: torch.Tensor      #: per tile: its runs were recorded
+    staged_runs: torch.Tensor  #: per tile: runs whose rows it staged
+    words: torch.Tensor       #: per tile: row-buffer words it filled
+    live: torch.Tensor        #: per tile: it holds a valid lane
+    from_stage: torch.Tensor  #: per lane: valid and resolved from its
+    #                           tile's staged rows (else from global memory)
+
+
+def tile_item_stage(item_pv, indptr, pair_u, pair_v) -> ItemStage:
+    """The rule by which ``census_fused_items`` stages rows.
+
+    Tile ``k`` holds lanes ``[k * BLOCK_ITEMS, (k + 1) * BLOCK_ITEMS)``.
+    A lane is valid when its ``item_pv`` word has the valid bit; a run
+    starts at each valid lane whose pair (``item_pv >> 1``) differs from
+    the previous valid lane's in the tile.  A tile of at most
+    ``STAGE_RUNS`` runs records them all; in run order, each run's pair
+    ``(u, v)`` needs ``len = deg(u) + deg(v)`` words for both rows, and
+    a run is staged when ``0 < len <= STAGE_WORDS`` (it fits alone) and
+    it ends within ``STAGE_WORDS`` at the running sum of the lengths of
+    the earlier runs that fit alone.  A valid lane of a staged run is
+    resolved from the stage; any other valid lane from global memory.
+    Works on CPU and CUDA tensors alike.
     """
+    n = item_pv.shape[0]
+    tiles = max(1, -(-n // BLOCK_ITEMS))
+    device = item_pv.device
+    pv = item_pv.long()
+    valid = (pv & 1) == 1
+    lane_tile = torch.arange(n, device=device) // BLOCK_ITEMS
+    at = torch.nonzero(valid).reshape(-1)
+    pair, tile = pv[at] >> 1, lane_tile[at]
+    head = torch.ones(at.shape[0], dtype=torch.bool, device=device)
+    head[1:] = (pair[1:] != pair[:-1]) | (tile[1:] != tile[:-1])
+    runs = torch.zeros(tiles, dtype=torch.long, device=device)
+    runs.index_add_(0, tile, head.long())
+    staged = runs <= STAGE_RUNS
+    # per run, in order: its tile, pair and row words
+    run_tile, run_pair = tile[head], pair[head]
+    deg = (indptr[1:] - indptr[:-1]).long()
+    length = deg[pair_u[run_pair].long()] + deg[pair_v[run_pair].long()]
+    fits = (length > 0) & (length <= STAGE_WORDS)
+    fit_len = torch.where(fits, length, 0)
+    incl = torch.cumsum(fit_len, 0)
+    tile_start = torch.zeros(tiles + 1, dtype=torch.long, device=device)
+    tile_start[1:] = torch.cumsum(
+        torch.zeros(tiles, dtype=torch.long, device=device).index_add_(
+            0, run_tile, fit_len), 0)
+    off = incl - fit_len - tile_start[run_tile]
+    run_staged = staged[run_tile] & fits & (off + length <= STAGE_WORDS)
+    staged_runs = torch.zeros(tiles, dtype=torch.long, device=device)
+    staged_runs.index_add_(0, run_tile, run_staged.long())
+    words = torch.zeros(tiles, dtype=torch.long, device=device)
+    words.index_add_(0, run_tile, torch.where(run_staged, length, 0))
+    run_of = torch.cumsum(head.long(), 0) - 1
+    from_stage = torch.zeros(n, dtype=torch.bool, device=device)
+    from_stage[at] = run_staged[run_of]
+    live = torch.zeros(tiles, dtype=torch.bool, device=device)
+    live[tile] = True
+    return ItemStage(runs, staged, staged_runs, words, live, from_stage)
+
+
+def _launch_items(indptr, packed, pair_u, pair_v, pair_code, item_sp,
+                  item_pv, probe: bool):
+    """Launch ``census_fused_items`` (or, with ``probe``, its instance
+    that also reports the branch each tile and lane took, and when) on
+    CUDA tensors; returns the output and, with ``probe``, the int32 tile
+    and lane flags and the int64 (tiles, 4) clocks."""
     device, ptrs = _graph_pointers("census_fused_kernel", indptr, packed,
                                    pair_u, pair_v, pair_code)
     num_items = item_sp.shape[0]
@@ -250,10 +319,64 @@ def census_fused_kernel(indptr, packed, pair_u, pair_v, pair_code,
         build.require_vector("item_pv", item_pv, device, num_items),
     ]
     out = torch.zeros(OUT_WORDS, dtype=torch.int32, device=device)
+    flags = ()
+    if probe:
+        tiles = max(1, -(-num_items // BLOCK_ITEMS))
+        flags = (torch.full((tiles,), -1, dtype=torch.int32, device=device),
+                 torch.full((num_items,), -1, dtype=torch.int32,
+                            device=device),
+                 torch.full((tiles, 4), -1, dtype=torch.int64,
+                            device=device))
     lib = build.load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.census_fused_items_launch(*ptrs, num_items,
-                                            out.data_ptr(), stream)
+        entry = (lib.census_fused_items_probe_launch if probe
+                 else lib.census_fused_items_launch)
+        err = entry(*ptrs, num_items, out.data_ptr(),
+                    *(f.data_ptr() for f in flags), stream)
     build.check(lib, err, "census_fused_items")
-    return out
+    return out, *flags
+
+
+def census_fused_kernel(indptr, packed, pair_u, pair_v, pair_code,
+                        item_sp, item_pv) -> torch.Tensor:
+    """Launch the host-emission kernel on CUDA tensors.
+
+    Returns the ``int32[67]`` output: ``hist64`` then lanes [inter-asym,
+    inter-mut, 0].  Zero item words are padding.  Launches on the current
+    stream and does not synchronise.
+    """
+    return _launch_items(indptr, packed, pair_u, pair_v, pair_code,
+                         item_sp, item_pv, probe=False)[0]
+
+
+class ItemsProbe(NamedTuple):
+    """What ``census_fused_items`` computed, which branch it took, and
+    where each tile's time went."""
+
+    out: torch.Tensor          #: int32[67], as ``census_fused_kernel``
+    tile_staged: torch.Tensor  #: per tile: it recorded its runs
+    lane_staged: torch.Tensor  #: per lane: resolved from staged rows
+    cycles: torch.Tensor       #: per tile, SM clock cycles: (runs and
+    #                            records, rows staged, lanes classified)
+
+
+def census_fused_items_probe(indptr, packed, pair_u, pair_v, pair_code,
+                             item_sp, item_pv) -> ItemsProbe:
+    """Run the host-emission kernel's body on CUDA tensors and report,
+    from the card, which branch each tile and each lane took, and how
+    many SM clock cycles each tile spent in each phase (the probe's own
+    flag writes included).
+
+    A diagnostic beside the main launch, as :func:`census_fused_desc_probe`
+    is: the tests and the smoke hold its flags to :func:`tile_item_stage`
+    (``staged`` and ``from_stage``) and its output to the plain version.
+    Not counted as a launch of the wrapper.  Synchronises.
+    """
+    out, tiles, lanes, clocks = _launch_items(
+        indptr, packed, pair_u, pair_v, pair_code, item_sp, item_pv,
+        probe=True)
+    if bool((tiles < 0).any()) or bool((lanes < 0).any()) \
+            or bool((clocks < 0).any()):
+        raise RuntimeError("census_fused_items probe left flags unwritten")
+    return ItemsProbe(out, tiles == 1, lanes == 1, clocks.diff(dim=1))

@@ -8,8 +8,11 @@
 //   census_fused_kernel (body _kernel)           -> census_fused_items
 //     host emission: the same classify-and-fold fed packed item words
 //     item_sp = slot << 1 | side, item_pv = pair << 1 | valid.
-// Both share classify_fold(): the witness gather, the row search, the
-// tricode classification and the histogram fold.
+// The desc kernel resolves and classifies through classify_fold() (the
+// witness gather, the row search, the tricode classification and the
+// histogram fold); the items kernel through classify_fold_lanes(), the
+// same classification with the witness and the row search taken from
+// shared memory where its tile staged them.
 //
 // What bounds the desc kernel: not HBM bandwidth.  It runs about 5.5x
 // its byte bound, no faster on a graph that fits in L2 than on one that
@@ -20,8 +23,9 @@
 // lanes of a 4,096-lane tile share at most a few hundred descriptors.
 // Staging what the lanes share, keeping two chains in flight and looking
 // descriptors up in a table took it from 0.216 to 0.192 ms on the
-// patents-size graph's first window.  Variants that each undo one step
-// are 0-19 % slower, and none removes most of what is left: the lanes'
+// patents-size graph's first window (NVIDIA H100 80GB HBM3, 700 W).
+// Variants that each undo one step are 0-19 % slower, and none removes
+// most of what is left: the lanes'
 // own work -- resolution, witness, row search, fold -- beside the stage
 // (PERF.md, section 6).
 //
@@ -49,6 +53,46 @@
 // The fold stays one shared atomicAdd per counted lane: counting a warp's
 // lanes per bin first (__match_any_sync) measured 1 % slower.
 //
+// What bounds the items kernel: the same per-lane work, and occupancy.
+// Host items come grouped by pair, so the 4,096 lanes of a tile touch a
+// few hundred pairs, and the first port fetched each lane's pair words,
+// indptr words and rows from global memory at the end of its chain.
+// The redesign stages them once per tile:
+// 4. Runs.  Thread t reads the item_pv words of lanes [16 t, 16 t + 16)
+//    (16-byte loads where aligned); a run starts at each valid lane whose
+//    pair differs from the previous valid lane's, and two block scans
+//    (last valid pair before each thread, heads before each thread) give
+//    every lane its run.
+// 5. The stage.  A tile of at most kStageRuns runs records each run's
+//    pair (u, v, code, both row bounds); in run order, a run whose rows
+//    fit the row buffer alone is placed at the running sum of such
+//    rows, and staged when it ends within the buffer.  The staged rows
+//    are copied coalesced: word w of the buffer belongs to the staged
+//    run whose start bit is the last at or before w.
+// 6. Staged lanes.  A lane of a staged run reads its witness and
+//    searches the other row in shared memory: after its item_sp word it
+//    makes no global load (nor after its item_pv word, read in step 4).
+//    Any other lane -- a run past the buffer, a hub pair whose rows
+//    exceed it, a tile of more than kStageRuns runs (shuffled or strided
+//    items) -- resolves from global memory in the same launch.
+//    kernels/census_fused.py tile_item_stage is this rule in torch;
+//    census_fused_items_probe_launch runs this kernel and reports which
+//    branch each tile and lane took, and each tile's clock per phase.
+// Measured on an NVIDIA H100 80GB HBM3 at a 700 W power limit (PERF.md,
+// section 6), the redesign is slower than the first port's per-lane
+// kernel: 0.205 against 0.140 ms at the patents-size graph's first
+// window.  Undoing the row stage alone makes it up to 3 % faster, the
+// records too 3-9 %: the first port's per-lane path is fast at 8 blocks
+// per SM, and the stage's 43 KB of shared memory and 64 registers allow
+// 4.  A tile spends about half its clock on the lanes'
+// own work (classification and row search) and half on the runs, the
+// records and the row copy, which the lanes wait for.  A 5,120-word
+// buffer stages more runs and is 1-4 % slower; capping registers for 5
+// or 6 blocks per SM spills and is no faster.
+// The stage is sized to stay within 48 KB of static shared memory: a
+// dynamic (extern) array in this file would change the desc kernel's
+// shared-memory size as ptxas reports it.
+//
 // The TPU kernel folds into one output block revisited across a
 // sequential grid.  Here blocks run in any order: each folds its tile
 // into __shared__ counters and flushes them with one global atomicAdd
@@ -66,6 +110,7 @@
 #include <cuda_runtime.h>
 
 #include <climits>
+#include <cstdint>
 
 namespace {
 
@@ -79,6 +124,18 @@ constexpr int kTable = kStageAnchors * kAnchorStride;  // indices a tile spans
 constexpr int kWarps = kThreads / 32;
 static_assert(kStageDescs <= 32767, "lane table entries are 16-bit");
 constexpr int kOutWords = 67;       // hist64 + three counter lanes
+constexpr int kStageRuns = 512;     // kernels.census_fused.STAGE_RUNS
+constexpr int kStageWords = 4096;   // kernels.census_fused.STAGE_WORDS
+constexpr int kLanesPerThread = kBlockItems / kThreads;
+constexpr int kRunsPerThread = kStageRuns / kThreads;
+constexpr int kStartWords = kStageWords / 32;  // start bits per 32 words
+constexpr int kCopyBatch = 8;       // row words in flight per thread
+static_assert(kStageRuns % kThreads == 0 && kStartWords <= kThreads,
+              "run records and start-bit words are spread over threads");
+static_assert(kStageWords < 65536 && kStageRuns < 32768,
+              "packed scans and 16-bit run indices");
+// s.lane state of a padding lane (zero valid bit); else its run
+constexpr short kLanePadding = -1;
 
 // keep_mode: which plan-time pruning predicate lane 2 counts
 // (census.prune_keep_mask); kKeepNone for host-emitted items
@@ -475,41 +532,436 @@ census_fused_desc(GraphArrays g, DescWindow win,
   flush(s_acc, lanes, out);
 }
 
+// ---- host-emission kernel: runs of one pair staged per tile ----
+
+// Exclusive prefix sum of x over the block's threads in thread order;
+// total gets the block's sum.  Ends with a barrier.
+__device__ __forceinline__ int block_exclusive_sum(int x, int* s_scan,
+                                                   int& total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int incl = x;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int up = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += up;
+  }
+  if (lane == 31) s_scan[warp] = incl;
+  __syncthreads();
+  int before = incl - x;
+  total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int part = s_scan[w];
+    if (w < warp) before += part;
+    total += part;
+  }
+  __syncthreads();
+  return before;
+}
+
+// The last x >= 0 of the threads before this one, in thread order, or -1.
+// Ends with a barrier.
+__device__ __forceinline__ int block_last_before(int x, int* s_scan) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int incl = x;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int up = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off && incl < 0) incl = up;
+  }
+  if (lane == 31) s_scan[warp] = incl;
+  __syncthreads();
+  int before = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) before = -1;
+  for (int w = warp - 1; w >= 0 && before < 0; --w) before = s_scan[w];
+  __syncthreads();
+  return before;
+}
+
+// A run of lanes of one pair, recorded by its tile: the copy fields
+// first (one 16-byte word), then the rest.
+struct alignas(16) StagedRun {
+  int off;  // row buffer word of u's row (v's follows it); -1: not staged
+  int row_u, deg_u, row_v;
+  int u, v, pc, deg_v;
+};
+
+// The items kernel's shared memory: within the 48 KB of static shared
+// memory, so that four blocks fit an SM.
+struct ItemStage {
+  int buf[kStageWords];         // staged rows, run after run
+  StagedRun run[kStageRuns];    // per run of the tile
+  short lane[kBlockItems];      // per lane: its run, or kLanePadding
+  short order[kStageRuns];      // the staged runs, in buffer order
+  unsigned starts[kStartWords];  // bit w % 32 of word w / 32: a run starts
+  int rank[kStartWords];        // staged runs starting before word 32 k
+  int acc[kOutWords];
+  int scan[kWarps];
+};
+
+// One host item, resolved: its pair, its witness entry, and where the
+// other endpoint's row lies: in the row buffer, or in packed.
+struct ItemLane {
+  bool valid;
+  bool staged;      // the other row is [olo, ohi) of the row buffer
+  int u, v, pc, side;
+  int wp;           // the witness entry packed[slot]
+  int olo, ohi;     // else [olo, ohi) of packed
+};
+
+// classify_fold for resolved host items: the same classification and
+// fold, with the witness already loaded and each chain's row search in
+// the row buffer (shared) or in packed (global, read-only path).
+__device__ __forceinline__ void classify_fold_lanes(
+    const int* __restrict__ packed, const int* s_buf,
+    const ItemLane (&it)[kChains], int* s_acc, Lanes& lanes) {
+  int w[kChains], lo[kChains], hi[kChains], hv[kChains];
+  bool counted[kChains];
+#pragma unroll
+  for (int c = 0; c < kChains; ++c) {
+    const ItemLane& x = it[c];
+    w[c] = x.wp >> 2;
+    counted[c] = x.valid && (w[c] != x.u) && (w[c] != x.v);
+    lo[c] = counted[c] ? x.olo : 0;
+    hi[c] = counted[c] ? x.ohi : 0;
+    hv[c] = 0;
+  }
+  for (;;) {
+    bool any = false;
+    int mid[kChains], probe[kChains];
+#pragma unroll
+    for (int c = 0; c < kChains; ++c) {
+      mid[c] = (lo[c] + hi[c]) >> 1;
+      probe[c] = lo[c] >= hi[c]  ? 0
+                 : it[c].staged ? s_buf[mid[c]]
+                                : __ldg(packed + mid[c]);
+      any |= lo[c] < hi[c];
+    }
+    if (!any) break;
+#pragma unroll
+    for (int c = 0; c < kChains; ++c) {
+      if (lo[c] < hi[c]) {
+        if ((probe[c] >> 2) < w[c]) {
+          lo[c] = mid[c] + 1;
+        } else {
+          hi[c] = mid[c];
+          hv[c] = probe[c];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kChains; ++c) {
+    const ItemLane& x = it[c];
+    const bool found = counted[c] && lo[c] < x.ohi && (hv[c] >> 2) == w[c];
+    const int c_other = found ? hv[c] & 3 : 0;
+    const int c_side = x.wp & 3;
+    const int c_uv = x.pc & 3;
+    const int c_uw = x.side == 0 ? c_side : c_other;
+    const int c_vw = x.side == 0 ? c_other : c_side;
+    const bool dedup = !(found && x.side == 1);
+    const bool canonical =
+        (x.v < w[c]) || (x.u < w[c] && w[c] < x.v && c_uw == 0);
+    const int bin = counted[c] && dedup && canonical
+                        ? c_uv * 16 + c_uw * 4 + c_vw
+                        : -1;
+    if (found && x.side == ((x.pc >> 2) & 1)) {
+      if (c_uv == 3) {
+        ++lanes.inter_mut;
+      } else {
+        ++lanes.inter_asym;
+      }
+    }
+    if (bin >= 0) atomicAdd(&s_acc[bin], 1);
+  }
+}
+
+// Runs, records and the row stage of the tile [first, first + count):
+// fills s.lane, s.run, s.order and s.buf.  Returns whether the tile's
+// runs were recorded (at most kStageRuns); block-uniform, ends with a
+// barrier.  kProbe: clk[0] gets the clock when the records are done
+// (before the rows are copied).
+template <bool kProbe>
+__device__ __forceinline__ bool stage_items(const GraphArrays& g,
+                                            const int* __restrict__ pv_tile,
+                                            int count, ItemStage& s,
+                                            long long* clk) {
+  // 1. runs: thread t reads the item_pv words of lanes [16 t, 16 t + 16)
+  const int lo = threadIdx.x * kLanesPerThread;
+  int pv[kLanesPerThread];
+  if (lo + kLanesPerThread <= count &&
+      (reinterpret_cast<uintptr_t>(pv_tile) & 15u) == 0) {
+    const int4* p4 = reinterpret_cast<const int4*>(pv_tile + lo);
+#pragma unroll
+    for (int q = 0; q < kLanesPerThread / 4; ++q) {
+      const int4 x = __ldg(p4 + q);
+      pv[4 * q] = x.x;
+      pv[4 * q + 1] = x.y;
+      pv[4 * q + 2] = x.z;
+      pv[4 * q + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kLanesPerThread; ++i) {
+      pv[i] = lo + i < count ? __ldg(pv_tile + lo + i) : 0;
+    }
+  }
+  if (threadIdx.x < kStartWords) s.starts[threadIdx.x] = 0u;
+  int last = -1;
+#pragma unroll
+  for (int i = 0; i < kLanesPerThread; ++i) {
+    if (pv[i] & 1) last = pv[i] >> 1;
+  }
+  // a run head: a valid lane whose pair differs from the previous valid
+  // lane's in the tile
+  int prev = block_last_before(last, s.scan);
+  unsigned heads = 0u;
+#pragma unroll
+  for (int i = 0; i < kLanesPerThread; ++i) {
+    if (pv[i] & 1) {
+      if ((pv[i] >> 1) != prev) heads |= 1u << i;
+      prev = pv[i] >> 1;
+    }
+  }
+  int num_runs = 0;
+  int run = block_exclusive_sum(__popc(heads), s.scan, num_runs) - 1;
+  const bool recorded = num_runs <= kStageRuns;
+#pragma unroll
+  for (int i = 0; i < kLanesPerThread; ++i) {
+    short state = kLanePadding;
+    if (pv[i] & 1) {
+      if ((heads >> i) & 1u) {
+        ++run;
+        if (recorded) s.run[run].u = pv[i] >> 1;  // the pair, for now
+      }
+      state = static_cast<short>(run);
+    }
+    s.lane[lo + i] = state;
+  }
+  __syncthreads();
+  if (!recorded) {
+    if (kProbe && threadIdx.x == 0) clk[0] = clock64();
+    return false;
+  }
+
+  // 2. records: thread t takes runs 2 t and 2 t + 1; both rows of a run
+  // take len words, placed at the running sum of the lengths of the
+  // runs before it that fit the buffer alone; a run is staged when it
+  // fits alone (0 < len <= kStageWords) and ends within the buffer
+  StagedRun e[kRunsPerThread];
+  int len[kRunsPerThread];
+  bool fits[kRunsPerThread];
+#pragma unroll
+  for (int j = 0; j < kRunsPerThread; ++j) {
+    const int k = threadIdx.x * kRunsPerThread + j;
+    len[j] = 0;
+    if (k < num_runs) {
+      const int pair = s.run[k].u;
+      e[j].u = __ldg(g.pair_u + pair);
+      e[j].v = __ldg(g.pair_v + pair);
+      e[j].pc = __ldg(g.pair_code + pair);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kRunsPerThread; ++j) {
+    const int k = threadIdx.x * kRunsPerThread + j;
+    if (k < num_runs) {
+      e[j].row_u = __ldg(g.indptr + e[j].u);
+      e[j].deg_u = __ldg(g.indptr + e[j].u + 1) - e[j].row_u;
+      e[j].row_v = __ldg(g.indptr + e[j].v);
+      e[j].deg_v = __ldg(g.indptr + e[j].v + 1) - e[j].row_v;
+      len[j] = e[j].deg_u + e[j].deg_v;
+    }
+    fits[j] = len[j] > 0 && len[j] <= kStageWords;
+  }
+  int fit_words = 0;
+#pragma unroll
+  for (int j = 0; j < kRunsPerThread; ++j) fit_words += fits[j] ? len[j] : 0;
+  int unused = 0;
+  int off = block_exclusive_sum(fit_words, s.scan, unused);
+  int staged_words = 0;
+  int staged_runs = 0;
+#pragma unroll
+  for (int j = 0; j < kRunsPerThread; ++j) {
+    const bool staged = fits[j] && off + len[j] <= kStageWords;
+    e[j].off = staged ? off : -1;
+    off += fits[j] ? len[j] : 0;
+    staged_words += staged ? len[j] : 0;
+    staged_runs += staged;
+  }
+  int totals = 0;
+  int order =
+      block_exclusive_sum(staged_words << 16 | staged_runs, s.scan, totals) &
+      0xffff;
+  const int words = totals >> 16;
+#pragma unroll
+  for (int j = 0; j < kRunsPerThread; ++j) {
+    const int k = threadIdx.x * kRunsPerThread + j;
+    if (k < num_runs) {
+      s.run[k] = e[j];
+      if (e[j].off >= 0) {
+        s.order[order++] = static_cast<short>(k);
+        atomicOr(&s.starts[e[j].off >> 5], 1u << (e[j].off & 31));
+      }
+    }
+  }
+  __syncthreads();
+  const int bits = threadIdx.x < kStartWords ? __popc(s.starts[threadIdx.x])
+                                             : 0;
+  const int rank = block_exclusive_sum(bits, s.scan, unused);
+  if (threadIdx.x < kStartWords) s.rank[threadIdx.x] = rank;
+  __syncthreads();
+  if (kProbe && threadIdx.x == 0) clk[0] = clock64();
+
+  // 3. the rows: word w of the buffer belongs to the staged run whose
+  // start is the last at or before w (its rank among the start bits)
+  for (int w0 = threadIdx.x; w0 < words; w0 += kThreads * kCopyBatch) {
+    int val[kCopyBatch];
+#pragma unroll
+    for (int q = 0; q < kCopyBatch; ++q) {
+      const int w = w0 + q * kThreads;
+      if (w < words) {
+        const int grp = w >> 5;
+        const int c = s.rank[grp] +
+                      __popc(s.starts[grp] & ((2u << (w & 31)) - 1u)) - 1;
+        const int4 f = *reinterpret_cast<const int4*>(&s.run[s.order[c]]);
+        const int j = w - f.x;  // off, row_u, deg_u, row_v
+        val[q] = __ldg(g.packed + (j < f.z ? f.y + j : f.w + (j - f.z)));
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kCopyBatch; ++q) {
+      const int w = w0 + q * kThreads;
+      if (w < words) s.buf[w] = val[q];
+    }
+  }
+  __syncthreads();
+  return true;
+}
+
+// A lane of a tile that recorded its runs, with item_sp word sp and
+// lane state st (its run, or kLanePadding): straight-line, so that the
+// chains of a thread interleave.  Its pair from the run's record; its
+// witness and the other row from the row buffer when the run's rows are
+// staged (the witness from packed should its slot lie outside its
+// side's row), else from packed.
+__device__ __forceinline__ ItemLane resolve_run(const int* __restrict__ packed,
+                                                const ItemStage& s, int sp,
+                                                int st) {
+  const StagedRun r = s.run[max(st, 0)];
+  ItemLane x;
+  x.valid = st >= 0;  // a zero valid bit is padding: exact zero
+  x.staged = x.valid && r.off >= 0;
+  x.u = r.u;
+  x.v = r.v;
+  x.pc = r.pc;
+  x.side = sp & 1;
+  const int slot = sp >> 1;
+  const bool side0 = x.side == 0;
+  const int j = slot - (side0 ? r.row_u : r.row_v);
+  const bool in_row = x.staged && static_cast<unsigned>(j) <
+                                      static_cast<unsigned>(side0 ? r.deg_u
+                                                                  : r.deg_v);
+  x.wp = in_row    ? s.buf[(side0 ? r.off : r.off + r.deg_u) + j]
+         : x.valid ? __ldg(packed + slot)
+                   : 0;
+  x.olo = x.staged ? (side0 ? r.off + r.deg_u : r.off)
+                   : (side0 ? r.row_v : r.row_u);
+  x.ohi = x.olo + (side0 ? r.deg_v : r.deg_u);
+  return x;
+}
+
+// A lane of a tile past kStageRuns runs, from its item words alone, in
+// global memory.
+__device__ __forceinline__ ItemLane resolve_pv(const GraphArrays& g, int pv,
+                                               int sp) {
+  ItemLane x;
+  x.valid = (pv & 1) != 0;  // a zero valid bit is padding: exact zero
+  x.staged = false;
+  x.u = x.v = x.pc = x.wp = x.olo = x.ohi = 0;
+  x.side = sp & 1;
+  if (x.valid) {
+    const int pair = pv >> 1;
+    x.u = __ldg(g.pair_u + pair);
+    x.v = __ldg(g.pair_v + pair);
+    x.pc = __ldg(g.pair_code + pair);
+    x.wp = __ldg(g.packed + (sp >> 1));
+    const int other = x.side == 0 ? x.v : x.u;
+    x.olo = __ldg(g.indptr + other);
+    x.ohi = __ldg(g.indptr + other + 1);
+  }
+  return x;
+}
+
+// kProbe also records which branch ran: tile_staged[tile] whether the
+// tile recorded its runs (at most kStageRuns), lane_staged[position]
+// whether that lane resolved from staged rows; and, per tile, the
+// SM clock at 4 points: start, records done, rows staged, lanes done
+// (tile_clocks[4 tile + k]).  census_fused_items_probe_launch; the main
+// path runs the kProbe = false instance, which writes none of them.
+template <bool kProbe>
 __global__ void __launch_bounds__(kThreads)
 census_fused_items(GraphArrays g, const int* __restrict__ item_sp,
                    const int* __restrict__ item_pv, int num_items,
-                   int* __restrict__ out) {
-  __shared__ int s_acc[kOutWords];
-  for (int t = threadIdx.x; t < kOutWords; t += kThreads) s_acc[t] = 0;
-  __syncthreads();
-  Lanes lanes{0, 0, 0};
+                   int* __restrict__ out, int* __restrict__ tile_staged,
+                   int* __restrict__ lane_staged,
+                   long long* __restrict__ tile_clocks) {
+  __shared__ ItemStage s;
+  long long* clk = kProbe ? tile_clocks + 4 * blockIdx.x : nullptr;
+  if (kProbe && threadIdx.x == 0) clk[0] = clock64();
   const int first = blockIdx.x * kBlockItems;
   const int count = min(num_items - first, kBlockItems);
+  const int* pv_tile = item_pv + first;
+  const int* sp_tile = item_sp + first;
+  for (int t = threadIdx.x; t < kOutWords; t += kThreads) s.acc[t] = 0;
+  // each lane's item_sp word, read one round ahead
+  int next[kChains];
+#pragma unroll
+  for (int c = 0; c < kChains; ++c) {
+    const int t = c * kThreads + threadIdx.x;
+    next[c] = t < count ? __ldg(sp_tile + t) : 0;
+  }
+  const bool recorded = stage_items<kProbe>(g, pv_tile, count, s, clk + 1);
+  if (kProbe && threadIdx.x == 0) {
+    tile_staged[blockIdx.x] = recorded;
+    clk[2] = clock64();
+  }
+
+  Lanes lanes{0, 0, 0};
   for (int base = 0; base < count; base += kThreads * kChains) {
-    Item it[kChains];
+    int sp[kChains];
 #pragma unroll
     for (int c = 0; c < kChains; ++c) {
-      const int t = first + base + c * kThreads + threadIdx.x;
-      const int pv = t < first + count ? __ldg(item_pv + t) : 0;
-      Item& x = it[c];
-      x = Item{};
-      x.valid = (pv & 1) != 0;  // a zero valid bit is padding: exact zero
-      if (x.valid) {
-        const int sp = __ldg(item_sp + t);
-        const int pair = pv >> 1;
-        x.u = __ldg(g.pair_u + pair);
-        x.v = __ldg(g.pair_v + pair);
-        x.pc = __ldg(g.pair_code + pair);
-        x.slot = sp >> 1;
-        x.side = sp & 1;
-        const int other = x.side == 0 ? x.v : x.u;
-        x.olo = __ldg(g.indptr + other);
-        x.ohi = __ldg(g.indptr + other + 1);
+      sp[c] = next[c];
+      const int t = base + (kChains + c) * kThreads + threadIdx.x;
+      next[c] = t < count ? __ldg(sp_tile + t) : 0;
+    }
+    ItemLane it[kChains];
+    if (recorded) {
+#pragma unroll
+      for (int c = 0; c < kChains; ++c) {
+        const int t = base + c * kThreads + threadIdx.x;
+        it[c] = resolve_run(g.packed, s, sp[c],
+                            t < count ? s.lane[t] : kLanePadding);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < kChains; ++c) {
+        const int t = base + c * kThreads + threadIdx.x;
+        it[c] = resolve_pv(g, t < count ? __ldg(pv_tile + t) : 0, sp[c]);
       }
     }
-    classify_fold(g.packed, it, kKeepNone, s_acc, lanes);
+    if (kProbe) {
+#pragma unroll
+      for (int c = 0; c < kChains; ++c) {
+        const int t = base + c * kThreads + threadIdx.x;
+        if (t < count) lane_staged[first + t] = it[c].staged;
+      }
+    }
+    classify_fold_lanes(g.packed, s.buf, it, s.acc, lanes);
   }
-  flush(s_acc, lanes, out);
+  if (kProbe && threadIdx.x == 0) clk[3] = clock64();
+  flush(s.acc, lanes, out);
 }
 
 int num_blocks(int num_items) {
@@ -532,6 +984,20 @@ int launch_desc(const int* indptr, const int* packed, const int* pair_u,
                               static_cast<cudaStream_t>(stream)>>>(
       g, win, num_valid, idx, num_items, keep_mode, out, tile_staged,
       lane_staged);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kProbe>
+int launch_items(const int* indptr, const int* packed, const int* pair_u,
+                 const int* pair_v, const int* pair_code, const int* item_sp,
+                 const int* item_pv, int num_items, int* out,
+                 int* tile_staged, int* lane_staged, long long* tile_clocks,
+                 void* stream) {
+  const GraphArrays g{indptr, packed, pair_u, pair_v, pair_code};
+  census_fused_items<kProbe><<<num_blocks(num_items), kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      g, item_sp, item_pv, num_items, out, tile_staged, lane_staged,
+      tile_clocks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -578,11 +1044,26 @@ int census_fused_items_launch(const int* indptr, const int* packed,
                               const int* pair_code, const int* item_sp,
                               const int* item_pv, int num_items, int* out,
                               void* stream) {
-  const GraphArrays g{indptr, packed, pair_u, pair_v, pair_code};
-  census_fused_items<<<num_blocks(num_items), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      g, item_sp, item_pv, num_items, out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_items<false>(indptr, packed, pair_u, pair_v, pair_code,
+                             item_sp, item_pv, num_items, out, nullptr,
+                             nullptr, nullptr, stream);
+}
+
+// The same launch, from the same kernel body, that also reports which
+// branch ran and when: tile_staged int32[tiles] and lane_staged
+// int32[num_items] (tiles = ceil(num_items / 4096), at least 1), and
+// tile_clocks int64[4 tiles], all written in full.  A diagnostic: the
+// main path never calls it.
+int census_fused_items_probe_launch(const int* indptr, const int* packed,
+                                    const int* pair_u, const int* pair_v,
+                                    const int* pair_code,
+                                    const int* item_sp, const int* item_pv,
+                                    int num_items, int* out,
+                                    int* tile_staged, int* lane_staged,
+                                    long long* tile_clocks, void* stream) {
+  return launch_items<true>(indptr, packed, pair_u, pair_v, pair_code,
+                            item_sp, item_pv, num_items, out, tile_staged,
+                            lane_staged, tile_clocks, stream);
 }
 
 const char* repro_torch_error_string(int err) {

@@ -51,13 +51,19 @@ def tricode_histogram(tricode: torch.Tensor,
     """64-bin int32 histogram of ``tricode`` where ``mask`` is set.
 
     Drop-in histogram for :func:`repro_torch.core.census.census_partials`
-    (backend ``"hist"``).
+    (backend ``"hist"``).  On the card the kernel applies the mask
+    itself; only inputs that are not already 1-D int32 codes and a bool
+    mask of their shape are converted first (the census path passes
+    those, so it makes no pass of its own).
     """
-    on_cpu = _on_cpu(tricode, mask)
-    masked = torch.where(mask, tricode, 64).to(torch.int32).contiguous()
-    if on_cpu:
+    if _on_cpu(tricode, mask):
+        masked = torch.where(mask, tricode, 64).to(torch.int32).contiguous()
         return tricode_histogram_ref(masked)
-    out = tricode_hist.tricode_histogram_kernel(masked)
+    if tricode.shape != mask.shape:
+        tricode, mask = torch.broadcast_tensors(tricode, mask)
+    out = tricode_hist.tricode_histogram_kernel(
+        tricode.to(torch.int32).contiguous(),
+        mask.to(torch.bool).contiguous())
     tricode_histogram.launches += 1
     return out
 

@@ -234,7 +234,8 @@ def test_launchers_refuse_cpu_tensors():
         census_fused_kernel(*to_torch((*ck.device_arrays(), chunk.item_sp,
                                        chunk.item_pv)))
     with pytest.raises(ValueError):
-        tricode_histogram_kernel(torch.zeros(8, dtype=torch.int32))
+        tricode_histogram_kernel(torch.zeros(8, dtype=torch.int32),
+                                 torch.zeros(8, dtype=torch.bool))
     with pytest.raises(ValueError):          # neither CPU nor CUDA
         ops.tricode_histogram(torch.zeros(8, dtype=torch.int32,
                                           device="meta"),

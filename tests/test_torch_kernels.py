@@ -17,11 +17,14 @@ import torch
 import repro_torch as rt
 from repro_torch.core.incremental import (affected_pair_ids,
                                           subset_descriptor_windows)
-from repro_torch.core.planner import split_device_words
+from repro_torch.core.planner import (emit_items_for_pairs, pad_and_pack,
+                                     split_device_words)
 from repro_torch.kernels import ops
-from repro_torch.kernels.census_fused import (BLOCK_ITEMS,
+from repro_torch.kernels.census_fused import (BLOCK_ITEMS, STAGE_RUNS,
                                              census_fused_desc_probe,
-                                             tile_desc_ranges)
+                                             census_fused_items_probe,
+                                             tile_desc_ranges,
+                                             tile_item_stage)
 
 pytestmark = pytest.mark.cuda
 
@@ -61,6 +64,75 @@ def test_histogram_matches_plain(cuda, w):
     assert_same([got], [want])
     masked = torch.where(mask, tri, 64)
     assert int(got.sum()) == int(((masked >= 0) & (masked < 64)).sum())
+
+
+def hold_histogram(tri, mask):
+    """The kernel on CUDA views of ``tri`` and ``mask`` against the plain
+    version on the CPU, one launch per call."""
+    before = ops.tricode_histogram.launches
+    got = ops.tricode_histogram(tri, mask)
+    assert ops.tricode_histogram.launches == before + 1
+    assert_same([got], [ops.tricode_histogram(tri.cpu(), mask.cpu())])
+    return got
+
+
+@pytest.mark.parametrize("mask_offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("code_offset", [1, 2, 3])
+def test_histogram_misaligned_views(cuda, code_offset, mask_offset):
+    """Views with a storage offset: the codes' 16-byte alignment and the
+    mask's 4-byte alignment start elsewhere, equally or not."""
+    rng = np.random.default_rng(10 * code_offset + mask_offset)
+    w = 10_000
+    tri = torch.from_numpy(rng.integers(-3, 70, w + 8).astype(np.int32))
+    mask = torch.from_numpy(rng.random(w + 8) < 0.6)
+    hold_histogram(tri.to(cuda)[code_offset:code_offset + w],
+                   mask.to(cuda)[mask_offset:mask_offset + w])
+
+
+@pytest.mark.parametrize("code", [0, 20, 63])
+def test_histogram_one_bin(cuda, code):
+    """Every item in one bin: the lanes' private counters never meet."""
+    w = 3 * 2**16 + 5
+    tri = torch.full((w,), code, dtype=torch.int32, device=cuda)
+    mask = torch.ones(w, dtype=torch.bool, device=cuda)
+    got = hold_histogram(tri, mask)
+    assert int(got[code]) == w and int(got.sum()) == w
+
+
+def test_histogram_drops_codes_outside_the_bins(cuda):
+    """Codes that are negative or >= 64 are dropped where the mask is
+    set, as the masked copy of the first port dropped them."""
+    rng = np.random.default_rng(4)
+    w = 50_000
+    tri = rng.choice(np.array([-2**31, -65, -1, 64, 65, 2**31 - 1, 0, 33]),
+                     w).astype(np.int32)
+    mask = rng.random(w) < 0.8
+    got = hold_histogram(torch.from_numpy(tri).to(cuda),
+                         torch.from_numpy(mask).to(cuda))
+    assert int(got.sum()) == int(((tri == 0) | (tri == 33))[mask].sum())
+
+
+@pytest.mark.parametrize("w", [*range(1, 34), 1023, 1024, 1025, 4095, 4096,
+                               4097, 2**20 + 3])
+def test_histogram_lengths(cuda, w):
+    """Lengths 1-33 (head and tail only), and around one load width
+    (4 items) x threads (256) x loads in flight (4)."""
+    rng = np.random.default_rng(w)
+    tri = torch.from_numpy(rng.integers(-3, 70, w).astype(np.int32))
+    mask = torch.from_numpy(rng.random(w) < 0.7)
+    hold_histogram(tri.to(cuda), mask.to(cuda))
+
+
+@pytest.mark.parametrize("dtypes", [(torch.int64, torch.uint8),
+                                    (torch.int16, torch.bool)])
+def test_histogram_converts_other_dtypes(cuda, dtypes):
+    rng = np.random.default_rng(7)
+    w = 9_000
+    tri = torch.from_numpy(rng.integers(-3, 70, w)).to(dtypes[0])
+    mask = torch.from_numpy(rng.integers(0, 3, w)).to(dtypes[1])
+    got = ops.tricode_histogram(tri.to(cuda), mask.to(cuda))
+    masked = torch.where(mask != 0, tri, 64)
+    assert_same([got], [ops.tricode_histogram_ref(masked.to(torch.int32))])
 
 
 @pytest.mark.parametrize("orient", ["none", "degree"])
@@ -270,6 +342,160 @@ def test_fused_items_matches_plain(cuda, orient, max_items):
                     ops.fused_census_partials_ref(*args))
 
 
+def hold_items(graph, sp, pv, search_iters):
+    """Host items against the plain version on the same CUDA tensors,
+    through the wrapper and through the kernel's probe, whose branch per
+    tile and per lane must be the staging rule's; returns the valid lanes
+    and those the kernel resolved from staged rows."""
+    args = (*graph, sp, pv, search_iters)
+    want = ops.fused_census_partials_ref(*args)
+    assert_same(ops.fused_census_partials(*args), want)
+    probe = census_fused_items_probe(*graph, sp, pv)
+    assert_same((probe.out[:64], probe.out[64:66]), want)
+    assert int(probe.out[66]) == 0
+    rule = tile_item_stage(pv, graph[0], graph[2], graph[3])
+    assert torch.equal(probe.tile_staged, rule.staged)
+    assert torch.equal(probe.lane_staged, rule.from_stage)
+    return int((pv & 1).sum()), int(probe.lane_staged.sum())
+
+
+def item_layout(layout, sp, pv, rng):
+    """Host item words in order, shuffled, strided, with zero padding
+    words between them, or at an odd storage offset."""
+    n = sp.shape[0]
+    if layout == "in_order":
+        return sp, pv
+    if layout == "shuffled":
+        order = torch.from_numpy(rng.permutation(n))
+    elif layout == "strided":
+        order = torch.cat([torch.arange(k, n, 7) for k in range(7)])
+    elif layout == "zero_words":
+        zeros = torch.zeros(n, dtype=torch.int32, device=sp.device)
+        return (torch.stack([sp, zeros], 1).reshape(-1),
+                torch.stack([pv, zeros], 1).reshape(-1))
+    else:
+        assert layout == "offset"
+        pad = torch.zeros(1, dtype=torch.int32, device=sp.device)
+        return torch.cat([pad, sp])[1:], torch.cat([pad, pv])[1:]
+    order = order.to(sp.device)
+    return sp[order].contiguous(), pv[order].contiguous()
+
+
+@pytest.mark.parametrize("layout", ["in_order", "shuffled", "strided",
+                                    "zero_words", "offset"])
+@pytest.mark.parametrize("orient", ["none", "degree"])
+def test_fused_items_layouts(cuda, orient, layout):
+    """The staged and the global branch, bit for bit: host items in any
+    order on a hub graph, with pairs split across tiles; shuffled and
+    strided items put more than STAGE_RUNS runs in a tile."""
+    g = rt.paper_workload("orkut", 1000, 20.0, seed=0)
+    ck = rt.PlanChunker(g, 2**16, orient=orient)
+    graph = graph_on(ck, cuda)
+    rng = np.random.default_rng(len(layout))
+    valid = staged = 0
+    for chunk in ck:
+        sp, pv = (torch.from_numpy(a).to(cuda)
+                  for a in (chunk.item_sp, chunk.item_pv))
+        v, st = hold_items(graph, *item_layout(layout, sp, pv, rng),
+                           ck.space.search_iters)
+        valid += v
+        staged += st
+    assert valid > 0
+    if layout in ("shuffled", "strided"):
+        assert staged < valid
+    else:
+        assert staged > 0.5 * valid
+
+
+def test_fused_items_split_pairs(cuda):
+    """Pairs whose runs cross a tile boundary are staged in both tiles
+    (where their rows fit)."""
+    g = rt.paper_workload("orkut", 1000, 20.0, seed=0)
+    ck = rt.PlanChunker(g, 2**16)
+    graph = graph_on(ck, cuda)
+    chunk = ck.chunk(0)
+    pv = torch.from_numpy(chunk.item_pv).to(cuda)
+    edges = pv[BLOCK_ITEMS - 1::BLOCK_ITEMS]
+    split = int((edges[:-1] == pv[BLOCK_ITEMS::BLOCK_ITEMS][:len(edges) - 1]
+                 ).sum())
+    assert split > 0
+    valid, staged = hold_items(
+        graph, torch.from_numpy(chunk.item_sp).to(cuda), pv,
+        ck.space.search_iters)
+    assert staged > 0.5 * valid
+
+
+@pytest.mark.parametrize("orient", ["none", "degree"])
+def test_fused_items_session_order(cuda, orient):
+    """Items of a delta's affected pairs in the session's order."""
+    g = rt.paper_workload("orkut", 1000, 20.0, seed=0)
+    rng = np.random.default_rng(3)
+    _, delta = rt.apply_delta(g, rng.integers(0, g.n, 40),
+                              rng.integers(0, g.n, 40))
+    ck = rt.PlanChunker(g, None, orient=orient)
+    pairs = affected_pair_ids(ck.space, delta.touched)
+    rng.shuffle(pairs)
+    pair, slot, side = emit_items_for_pairs(ck.space, pairs)
+    sp, pv = pad_and_pack(pair, slot, side, pair.shape[0] + 100)
+    valid, staged = hold_items(graph_on(ck, cuda),
+                               torch.from_numpy(sp).to(cuda),
+                               torch.from_numpy(pv).to(cuda),
+                               ck.space.search_iters)
+    assert valid == pair.shape[0] > BLOCK_ITEMS
+    assert staged > 0.5 * valid
+
+
+@pytest.mark.parametrize("orient", ["none", "degree"])
+def test_fused_items_hub_past_capacity(cuda, orient):
+    """Three pairs of a hub of 8,300 arcs between 400 small pairs: the
+    hub pairs' rows exceed the row buffer, so their lanes resolve from
+    global memory; the small pairs' lanes still stage."""
+    n = 8600
+    rng = np.random.default_rng(3)
+    g = rt.from_edges(
+        np.concatenate([np.zeros(8300, np.int64), rng.integers(0, n, 3000)]),
+        np.concatenate([np.arange(1, 8301), rng.integers(0, n, 3000)]), n=n)
+    ck = rt.PlanChunker(g, None, orient=orient)
+    space = ck.space
+    hub = np.flatnonzero(space.pair_u == 0)[:3]
+    small = np.flatnonzero(space.pair_u != 0)[:400]
+    pair, slot, side = emit_items_for_pairs(
+        space, np.concatenate([small[:200], hub, small[200:]]))
+    sp, pv = pad_and_pack(pair, slot, side, pair.shape[0])
+    valid, staged = hold_items(graph_on(ck, cuda),
+                               torch.from_numpy(sp).to(cuda),
+                               torch.from_numpy(pv).to(cuda),
+                               space.search_iters)
+    assert 0 < staged < valid
+
+
+@pytest.mark.parametrize("orient", ["none", "degree"])
+@pytest.mark.parametrize("max_items", [1, 3, 5])
+def test_fused_items_tiny_budgets(cuda, orient, max_items):
+    """Windows of 1-5 items over pairs with one post-prune item."""
+    ck = rt.PlanChunker(star_with_pendants(), max_items, orient=orient)
+    graph = graph_on(ck, cuda)
+    for chunk in ck:
+        valid, staged = hold_items(
+            graph, torch.from_numpy(chunk.item_sp).to(cuda),
+            torch.from_numpy(chunk.item_pv).to(cuda), ck.space.search_iters)
+        assert staged == valid
+
+
+def test_items_rule_counts_runs(cuda):
+    """A tile of more than STAGE_RUNS runs records none of them."""
+    g = rt.paper_workload("orkut", 1000, 20.0, seed=0)
+    ck = rt.PlanChunker(g, 2**16)
+    chunk = ck.chunk(0)
+    pv = torch.from_numpy(chunk.item_pv).to(cuda)
+    pv = pv[torch.randperm(pv.shape[0], device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(0))]
+    indptr, _, pair_u, pair_v, _ = graph_on(ck, cuda)
+    rule = tile_item_stage(pv, indptr, pair_u, pair_v)
+    assert bool((rule.runs[rule.live] > STAGE_RUNS).all())
+    assert not bool(rule.from_stage.any())
+
+
 @pytest.mark.parametrize("backend", ["torch", "hist", "fused"])
 @pytest.mark.parametrize("emit", ["device", "host"])
 @pytest.mark.parametrize("orient", ["none", "degree"])
@@ -297,12 +523,17 @@ def test_wrappers_reject_bad_tensors(cuda):
     mask = torch.ones(10, dtype=torch.bool, device=cuda)
     from repro_torch.kernels.tricode_hist import tricode_histogram_kernel
     with pytest.raises(TypeError):
-        tricode_histogram_kernel(tri)
+        tricode_histogram_kernel(tri, mask)
+    with pytest.raises(TypeError):
+        tricode_histogram_kernel(tri.int(), mask.to(torch.uint8))
     with pytest.raises(ValueError):
         ops.tricode_histogram(tri.cpu(), mask)     # mixed devices
     with pytest.raises(ValueError):
         tricode_histogram_kernel(
-            torch.zeros((2, 5), dtype=torch.int32, device=cuda))
+            torch.zeros((2, 5), dtype=torch.int32, device=cuda),
+            mask.reshape(2, 5))
+    with pytest.raises(ValueError):
+        tricode_histogram_kernel(tri.int(), mask[:9])
 
 
 def code_tiles(rng, b, hit_rate, dup=False):
