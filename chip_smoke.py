@@ -43,9 +43,20 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    edited graph and sum to C(n, 3), the first also a plain torch session
    on the card, and each update must launch the desc kernel once per
    dispatch; the first delta is repeated with ``orient="degree"``;
-6. drives the entry point ``pair_codes`` once on (B, 128) tiles cut from
+6. runs the patents-size graph over four logical devices on the card
+   (``default_devices(4)``: four streams): partitioned 1D async with
+   megasteps of up to 8 windows for both orients, 1D lock-step, 2D
+   (2, 2) async, and replicated over 2 devices; each census held to the
+   single-device fused census of step 3 and to C(n, 3), the megastep's
+   launches to the async runs' dispatches and the single-window
+   kernel's to the lock-step windows; the first async run traced for
+   the device's idle share and for kernels of different streams running
+   at once (the kernel phase also times the megastep at 8 shard windows
+   against 8 single launches, and window 0 of the 4 shards on their 4
+   streams against one stream);
+7. drives the entry point ``pair_codes`` once on (B, 128) tiles cut from
    the patents-size graph (row pairs of window 0);
-7. runs the small oracle workloads through every backend × orient × emit
+8. runs the small oracle workloads through every backend × orient × emit
    against the serial Batagelj–Mrvar census, as one-shot runs and as
    sessions over a short delta stream.
 
@@ -57,6 +68,8 @@ with an error before any result.
 ``--rehearse`` runs the same phases on the CPU at toy sizes through the
 plain versions (no build, no device numbers) and never prints a result;
 it checks the script's own control flow before a run on the card.
+
+Each phase logs the script's elapsed time when it is done.
 
 ``--ab A.cu [B.cu ...]`` runs none of the phases: it builds the kernel
 library once more for each given version of one of the CUDA sources --
@@ -381,11 +394,11 @@ def desc_work(case: DescCase, want) -> dict:
     nwords = (idx.numel() + 1 + torch.unique(a[valid]).numel()
               + 3 * pairs.numel()
               + graph_words_read(indptr, pair_u, pair_v, pairs) + 67)
-    b, by = bound_ms(4 * nwords, float(row_probes.sum())
-                     + float(desc_probes.sum()) + n_valid)
+    ops = (float(row_probes.sum()) + float(desc_probes.sum()) + n_valid)
+    b, by = bound_ms(4 * nwords, ops)
     live, tile_staged, lane_staged, on_card = desc_branches(case, want)
     return dict(items=(pair, slot, side, valid), bound_ms=b, bound_by=by,
-                bound_bytes=4 * nwords, lanes=idx.numel(),
+                bound_bytes=4 * nwords, bound_ops=ops, lanes=idx.numel(),
                 valid_lanes=n_valid, tiles=int(live.sum()),
                 staged_tiles=int((live & tile_staged).sum()),
                 staged_lanes=int(lane_staged.sum()),
@@ -472,11 +485,12 @@ def device_ops(fn, device) -> list[str]:
         key=lambda e: e.time_range.start)]
 
 
-def kernel_phase(g, hub, device, max_items: int, session_k: int,
+def kernel_phase(g, hub, part, device, max_items: int, session_k: int,
                  reps: int) -> list[dict]:
     """Each kernel against its plain version at main-path shapes: the
     first descriptor window of the main graph (orient "none"); the desc
-    kernel also at a hub-graph window and a session-update window."""
+    kernel also at a hub-graph window and a session-update window, and
+    its megastep entry at a batch of 8 shard windows of ``part``."""
     import torch
     from repro_torch.core import census
     from repro_torch.kernels import ops
@@ -546,7 +560,9 @@ def kernel_phase(g, hub, device, max_items: int, session_k: int,
         **{k: head[k] for k in ("ms", "plain_ms", "library_ms", "warm_ms",
                                 "bound_ms", "bound_by", "bound_bytes",
                                 "lanes", "valid_lanes")},
-        windows=windows))
+        windows=[{k: v for k, v in w.items() if k != "bound_ops"}
+                 for w in windows],
+        batch=batch_record(part, max_items, device, reps, flush, timings)))
 
     # 2. fused host-item kernel, at the same three windows as host items
     item_windows = []
@@ -704,7 +720,7 @@ def lib_launch(entry: str, args, out_words: int, device, split=None):
     return run
 
 
-def ab_kernels(target: str, g, hub, device, max_items: int,
+def ab_kernels(target: str, g, hub, part, device, max_items: int,
                session_k: int) -> list:
     """The timed calls of the kernels of ``csrc/<target>``: (C entry,
     window label, plain version's output, ``run(lib)``)."""
@@ -726,6 +742,23 @@ def ab_kernels(target: str, g, hub, device, max_items: int,
                             case.idx.numel(), dp.numel(), an.numel(),
                             _keep_mode(case.orient, True)),
                            OUT_WORDS, device, lambda o: (o[:64], o[64:]))))
+        batch, cases, sched = shard_batch_case(part, max_items, device, 8)
+        case = cases[0]
+        calls.append((
+            "census_fused_desc_batch_launch", f"shard0-x{len(cases)}",
+            tuple(t.reshape(-1) for t in
+                  ops.fused_census_desc_partials_batch_ref(
+                      *case.graph, batch, case.idx, *case.iters, "none",
+                      True)),
+            lib_launch("census_fused_desc_batch_launch",
+                       (*case.graph, batch, case.idx, batch.shape[0],
+                        batch.shape[1], sched.desc_shape, sched.num_anchors,
+                        case.idx.numel(), _keep_mode("none", True)),
+                       OUT_WORDS * batch.shape[0], device,
+                       lambda o: (o.reshape(-1, OUT_WORDS)[:, :64]
+                                  .reshape(-1),
+                                  o.reshape(-1, OUT_WORDS)[:, 64:]
+                                  .reshape(-1)))))
         for case in items:
             calls.append((
                 "census_fused_items_launch", case.label,
@@ -769,8 +802,8 @@ def c_entry_arity(source: Path) -> dict:
         r"^(?:int|const char\*) (\w+)\(([^)]*)\)", text, re.M)}
 
 
-def ab_phase(g, hub, device, max_items: int, session_k: int, sources,
-             reps: int) -> None:
+def ab_phase(g, hub, part, device, max_items: int, session_k: int,
+             sources, reps: int) -> None:
     """Time the kernels of other versions of the package's CUDA sources
     against the package's own, in turns -- the package's, each version,
     each version again in reverse order, the package's -- with the L2
@@ -804,7 +837,7 @@ def ab_phase(g, hub, device, max_items: int, session_k: int, sources,
         names = [n for n, t in targets.items() if t == target]
         mine = c_entry_arity(package[target])
         for entry, label, want, run in ab_kernels(
-                target, g, hub, device, max_items, session_k):
+                target, g, hub, part, device, max_items, session_k):
             kept = [n for n in names
                     if c_entry_arity(Path(n)).get(entry) == mine[entry]]
             for n in sorted(set(names) - set(kept)):
@@ -918,8 +951,10 @@ def trace_split(prof, device) -> dict:
     # copies and memsets are device activity
     host = {e.key: e.cpu_time_total / 1e6 for e in prof.key_averages()
             if e.device_type == DeviceType.CPU
-            and e.key in ("census.plan", "census.window")}
+            and e.key in ("census.plan", "census.partition",
+                          "census.window")}
     split = dict(plan_s=host.get("census.plan", 0.0),
+                 partition_s=host.get("census.partition", 0.0),
                  window_s=host.get("census.window", 0.0),
                  kernel_launches=0, kernel_ms=None, busy_ms=None)
     if device.type != "cuda":
@@ -1115,6 +1150,288 @@ def session_phase(g, device, max_items: int, census_none, census_degree,
     return dict(launches=launches, rows=rows)
 
 
+def shard_batch_case(part, max_items: int, device, cap: int):
+    """The megastep's measured batch: the first ``cap`` descriptor windows
+    of shard 0 of a 1D partition over 4 shards, as one (cap, words) int32
+    batch, with shard 0's resident arrays (``stacked_device_arrays`` rows,
+    as the engine commits them) and the flat-index array.  Returns the
+    batch, the single-window ``DescCase`` of each row and the schedule."""
+    import torch
+    from repro_torch import ShardSchedule, stacked_device_arrays
+    from repro_torch.core.planner import split_device_words
+    sched = ShardSchedule([sh.space for sh in part.shards], max_items,
+                          len(part.shards))
+    graph = tuple(torch.from_numpy(a[0]).to(device)
+                  for a in stacked_device_arrays(part.shards))
+    idx = torch.arange(sched.chunk_shape, dtype=torch.int32, device=device)
+    rows = min(cap, sched.steps_for(0))
+    batch = torch.from_numpy(np.stack([
+        sched.descriptors(0, j).device_words() for j in range(rows)])
+    ).to(device)
+    iters = (part.space.search_iters, sched.desc_iters)
+    cases = [DescCase(f"shard0-w{j}", graph,
+                      split_device_words(batch[j], sched.num_anchors), idx,
+                      iters, "none") for j in range(rows)]
+    return batch, cases, sched
+
+
+def batch_record(part, max_items: int, device, reps: int, flush,
+                 timings) -> dict:
+    """The megastep entry against its plain version and against one
+    single-window launch per row of the same batch: one (8, words) launch
+    vs 8 launches, L2 flushed and warm.  The bound counts each input once
+    over the batch: the index array, each row's valid count, anchors and
+    descriptors, and the graph words of the union of the rows' pairs."""
+    import torch
+    from repro_torch.kernels import ops
+    batch, cases, sched = shard_batch_case(part, max_items, device, 8)
+    graph, idx = cases[0].graph, cases[0].idx
+    args = (*cases[0].iters, "none", True)
+
+    def kernel():
+        return ops.fused_census_desc_partials_batch(*graph, batch, idx, *args)
+
+    def plain():
+        return ops.fused_census_desc_partials_batch_ref(*graph, batch, idx,
+                                                        *args)
+
+    def singles():
+        return [ops.fused_census_desc_partials(*c.args()) for c in cases]
+
+    got, want = kernel(), plain()
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            "megastep kernel != plain version on the shard batch")
+    for r, one in enumerate(singles()):
+        require(torch.equal(got[0][r], one[0]) and torch.equal(got[1][r],
+                                                               one[1]),
+                f"megastep row {r} != its single-window launch")
+    indptr, _, pair_u, pair_v, _ = graph
+    pairs, nwords, nops = [], idx.numel(), 0.0
+    for r, case in enumerate(cases):
+        work = desc_work(case, (want[0][r], want[1][r]))
+        pair, _, _, valid = work["items"]
+        nv, dp, dc, dw, an = case.window
+        a = (idx // 16).clamp(0, an.shape[0] - 1)
+        pairs.append(torch.unique(pair[valid]))
+        nwords += 1 + torch.unique(a[valid]).numel() + 3 * pairs[-1].numel()
+        nops += work["bound_ops"]
+    union = torch.unique(torch.cat(pairs))
+    nwords += graph_words_read(indptr, pair_u, pair_v, union) \
+        + 67 * len(cases)
+    b, by = bound_ms(4 * nwords, nops)
+    t = timings(kernel, plain)
+    parallel, serial = shard_streams_ms(part, max_items, device, reps, flush)
+    rec = dict(
+        name="fused_census_desc_partials_batch", route="cuda",
+        source="src/repro_torch/kernels/csrc/census_fused.cu",
+        replaces="src/repro/kernels/census_fused.py:187", launches=0,
+        max_abs_err=max_abs_err(got, want), **t, bound_ms=b, bound_by=by,
+        bound_bytes=4 * nwords, windows=len(cases),
+        lanes=len(cases) * idx.numel(),
+        valid_lanes=sum(int(c.window[0][0]) for c in cases),
+        singles_ms=timed_ms(singles, device, reps, flush),
+        singles_warm_ms=timed_ms(singles, device, reps),
+        words=int(batch.shape[1]), chunk_shape=sched.chunk_shape,
+        shards_streams_ms=parallel, shards_one_stream_ms=serial)
+    log(f"kernel fused_census_desc_partials_batch: one ({rec['windows']}, "
+        f"{rec['words']}) launch over shard 0's first windows "
+        f"({sched.chunk_shape} lanes each) ms {rec['ms']:.4f} (L2 flushed)"
+        f" warm_ms {rec['warm_ms']:.4f}; {rec['windows']} single-window "
+        f"launches ms {rec['singles_ms']:.4f} warm_ms "
+        f"{rec['singles_warm_ms']:.4f}; plain_ms {rec['plain_ms']:.4f} "
+        f"bound_ms {b:.4f} ({by}, {4 * nwords} bytes); equal to the plain "
+        f"version and, row for row, to the single launches")
+    log(f"kernel fused_census_desc_partials: window 0 of each of the 4 "
+        f"shards, launched back to back on the 4 logical devices' streams "
+        f"ms {parallel:.4f} (L2 flushed), on one stream ms {serial:.4f}: "
+        f"the kernels of different shard streams "
+        + ("overlap on the card" if parallel < 0.9 * serial
+           else "do not overlap much on the card"))
+    return rec
+
+
+def shard_streams_ms(part, max_items: int, device, reps: int, flush):
+    """Device time of window 0 of each shard of ``part``, one single-window
+    launch per shard, each on its logical device's own stream (as the
+    partitioned runs launch them) and all on one stream, L2 flushed."""
+    import torch
+    from repro_torch import ShardSchedule, default_devices
+    from repro_torch import stacked_device_arrays
+    from repro_torch.core.planner import split_device_words
+    from repro_torch.kernels import ops
+    sched = ShardSchedule([sh.space for sh in part.shards], max_items,
+                          len(part.shards))
+    arrays = stacked_device_arrays(part.shards)
+    idx = torch.arange(sched.chunk_shape, dtype=torch.int32, device=device)
+    iters = (part.space.search_iters, sched.desc_iters)
+    cases = [DescCase(
+        f"shard{s}-w0", tuple(torch.from_numpy(a[s]).to(device)
+                              for a in arrays),
+        split_device_words(torch.from_numpy(
+            sched.descriptors(s, 0).device_words()).to(device),
+            sched.num_anchors), idx, iters, "none")
+        for s in range(len(part.shards))]
+    def one_stream():
+        for c in cases:
+            ops.fused_census_desc_partials(*c.args())
+
+    if device.type != "cuda":
+        return (timed_ms(one_stream, device, reps),) * 2
+    lanes = default_devices(len(cases))
+
+    def on_streams():
+        here = torch.cuda.current_stream()
+        for ld, c in zip(lanes, cases):
+            ld.stream.wait_stream(here)
+            with torch.cuda.stream(ld.stream):
+                ops.fused_census_desc_partials(*c.args())
+        for ld in lanes:
+            here.wait_stream(ld.stream)
+
+    return (timed_ms(on_streams, device, reps, flush),
+            timed_ms(one_stream, device, reps, flush))
+
+
+def stream_overlap(prof) -> dict:
+    """From a trace: the census kernels' time per device stream, the time
+    any ran, and the time kernels of two or more streams ran at once."""
+    from torch.autograd import DeviceType
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and "census_fused" in e.name]
+    marks = []
+    for e in kernels:
+        stream = getattr(e, "device_resource_id", e.thread)
+        marks += [(e.time_range.start, 1, stream),
+                  (e.time_range.end, -1, stream)]
+    marks.sort(key=lambda m: (m[0], m[1]))
+    active: dict = {}
+    busy = both = 0.0
+    last = None
+    for at, step, stream in marks:
+        live = sum(1 for v in active.values() if v > 0)
+        if last is not None:
+            busy += (at - last) if live else 0.0
+            both += (at - last) if live >= 2 else 0.0
+        active[stream] = active.get(stream, 0) + step
+        last = at
+    streams = sorted({getattr(e, "device_resource_id", e.thread)
+                      for e in kernels})
+    return dict(kernels=len(kernels), streams=len(streams),
+                kernel_busy_ms=busy / 1e3, overlap_ms=both / 1e3)
+
+
+def partitioned_phase(g, device, max_items: int, part_none, part_s: float,
+                      census_none, census_degree) -> dict:
+    """Partitioned and replicated full runs over 4 logical devices (one
+    card: four streams): 1D async (megastep cap 8) both orients, 1D
+    lock-step, 2D (2, 2) async, and replicated over 2 devices; each
+    census held to the main path's fused census and to C(n, 3).  Launch
+    counts start from 0 just before each run: the megastep's must equal
+    the async run's dispatches, the single-window kernel's the lock-step
+    windows (steps x devices) and the replicated lanes (chunks x 2).
+    The first async run is traced.  Returns the megastep's launches."""
+    import torch
+    from repro_torch import CensusEngine, default_devices
+    from repro_torch.kernels import ops
+    cuda = device.type == "cuda"
+    total = g.n * (g.n - 1) * (g.n - 2) // 6
+    devices = default_devices(4, None if cuda else "cpu")
+    runs = [
+        ("1d async", "none", dict(partition=True), part_none, True),
+        ("1d async", "degree", dict(partition=True), None, False),
+        ("1d lockstep", "none", dict(partition=True, schedule="lockstep"),
+         part_none, False),
+        ("2d (2, 2) async", "none", dict(partition_2d=(2, 2)), None, False),
+        ("replicated x2", "none", dict(), None, False),
+    ]
+    batch_launches = 0
+    for label, orient, kw, part, traced in runs:
+        engine = CensusEngine(devices=devices[:2] if not kw else devices,
+                              backend="fused", max_windows_per_dispatch=8,
+                              **kw)
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if cuda:
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        if traced:
+            with torch.profiler.profile(activities=activities) as prof:
+                census = engine.run(g, max_items=max_items, orient=orient,
+                                    part=part)
+                if cuda:
+                    torch.cuda.synchronize()
+        else:
+            census = engine.run(g, max_items=max_items, orient=orient,
+                                part=part)
+            if cuda:
+                torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        batch = ops.fused_census_desc_partials_batch.launches
+        single = ops.fused_census_desc_partials.launches
+        st = engine.stats
+        want = census_none if orient == "none" else census_degree
+        require((census == want).all(),
+                f"{label} {orient}: {census.tolist()} != single-device "
+                f"fused census {want.tolist()}")
+        require(int(census.sum()) == total,
+                f"{label} {orient}: census sums to {int(census.sum())}")
+        if st.schedule == "async":
+            require(batch == (st.dispatches_total if cuda else 0)
+                    and single == 0,
+                    f"{label}: megastep launched {batch} times for "
+                    f"{st.dispatches_total} dispatches (single {single})")
+            batch_launches += batch
+        elif st.schedule == "lockstep":
+            require(single == (st.dispatches_total * st.ndev if cuda
+                               else 0) and batch == 0,
+                    f"{label}: desc kernel launched {single} times for "
+                    f"{st.dispatches_total} steps x {st.ndev} windows")
+        else:
+            require(single == (st.chunks * st.ndev if cuda else 0),
+                    f"{label}: desc kernel launched {single} times for "
+                    f"{st.chunks} chunks x {st.ndev} devices")
+        items = np.asarray(st.shard_items or [st.items])
+        windows = sum(st.shard_steps) if st.schedule else st.chunks
+        saving = st.graph_replicated_bytes / max(st.graph_resident_bytes, 1)
+        part_seconds = (st.host_partition_seconds if part is None
+                        else part_s)
+        log(f"partitioned {label} orient={orient}: wall {wall:.3f} s, host "
+            f"partition {part_seconds:.3f} s"
+            + (" (prebuilt, shared with the lock-step run)"
+               if part is not None else "")
+            + f", ndev {st.ndev}, shard_items max {int(items.max())} mean "
+            f"{items.mean():.1f} ({st.shard_max_over_mean:.4f}), "
+            f"shard_steps {st.shard_steps}, windows {windows}, dispatches "
+            f"{st.dispatches_total}, windows per dispatch mean "
+            f"{st.windows_per_dispatch_mean:.4f} max "
+            f"{st.windows_per_dispatch_max} (cap "
+            f"{st.dispatch_batch_limit}), stall_steps {st.stall_steps}, "
+            f"idle_steps {st.idle_steps}, resident bytes per device "
+            f"{st.graph_resident_bytes} vs replicated "
+            f"{st.graph_replicated_bytes} "
+            f"({saving:.4f}x less); launches megastep {batch} single {single}; "
+            f"census equal to the single-device census and C(n,3)")
+        if traced:
+            split = trace_split(prof, device)
+            if cuda:
+                over = stream_overlap(prof)
+                share = over["overlap_ms"] / max(over["kernel_busy_ms"], 1e-9)
+                log(f"partitioned {label} orient={orient} trace: host "
+                    f"ranges census.partition {split['partition_s']:.3f} s, "
+                    f"census.plan {split['plan_s']:.3f} s; "
+                    f"{over['kernels']} census kernels on {over['streams']}"
+                    f" streams, kernels running {over['kernel_busy_ms']:.4f}"
+                    f" ms, two or more streams' kernels at once "
+                    f"{over['overlap_ms']:.4f} ms "
+                    f"({share:.4%} of it); device busy {split['busy_ms']:.4f} ms = "
+                    f"{split['busy_ms'] / 1e3 / wall:.4%} of the wall, idle "
+                    f"{1 - split['busy_ms'] / 1e3 / wall:.4%}")
+            else:
+                log(f"partitioned {label} orient={orient} trace: device not "
+                    f"measured")
+    return dict(batch_launches=batch_launches)
+
+
 def small_delta_stream(g, seed: int):
     """An empty delta, a deletion-heavy one and one growing a row past
     the largest degree, as (add_src, add_dst, del_src, del_dst)."""
@@ -1191,6 +1508,10 @@ def oracle_phase(device) -> dict:
     return counts
 
 
+def phase_done(name: str, t_start: float) -> None:
+    log(f"phase {name} done at {time.perf_counter() - t_start:.3f} s")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--rehearse", action="store_true",
@@ -1241,12 +1562,21 @@ def main(argv=None) -> int:
                             seed=0)
     log(f"hub graph: n {hub.n} csr {hub.packed.shape[0]} max_degree "
         f"{int(hub.degrees.max())}")
+    t0 = time.perf_counter()
+    part = rt.partition_graph(num_shards=4, space=rt.pair_space(g))
+    part_s = time.perf_counter() - t0
+    log(f"1D partition of the main graph over 4 shards (orient none): "
+        f"{part_s:.3f} s of host (pair space, LPT, shard extraction)\n"
+        + rt.shard_report(part))
+    phase_done("graphs and partition", t_start)
     reps = 20 if device.type == "cuda" else 2
     if args.ab:
-        ab_phase(g, hub, device, max_items, session_ks[1], args.ab, reps)
+        ab_phase(g, hub, part, device, max_items, session_ks[1], args.ab,
+                 reps)
         return 0
-    records, codes_case = kernel_phase(g, hub, device, max_items,
+    records, codes_case = kernel_phase(g, hub, part, device, max_items,
                                        session_ks[1], reps)
+    phase_done("kernel", t_start)
 
     # the main path, both orients: launch counts from 0 just before it
     from repro_torch.kernels import ops
@@ -1261,12 +1591,21 @@ def main(argv=None) -> int:
     ops.reset_launch_counts()
     held_run("orkut-hub", hub, device, "degree", max_items,
              rt.pair_space(hub).num_items_preprune)
+    phase_done("main path and hub graph", t_start)
 
     # the session path: counts from 0 just before it
     ops.reset_launch_counts()
     session = session_phase(g, device, max_items, runs[0]["census"],
                             runs[1]["census"], session_ks)
     records[0]["session_launches"] = session["launches"]
+    phase_done("session", t_start)
+
+    # the partitioned and replicated full runs: counts from 0 just before
+    # each run, inside the phase
+    parted = partitioned_phase(g, device, max_items, part, part_s,
+                               runs[0]["census"], runs[1]["census"])
+    records[0]["batch"]["launches"] = parted["batch_launches"]
+    phase_done("partitioned", t_start)
 
     # the pair_codes entry point, on the kernel phase's tiles
     q, k, kc, want = codes_case
@@ -1281,6 +1620,7 @@ def main(argv=None) -> int:
         f"{records[3]['launches']}, equal to the plain version")
 
     counts = oracle_phase(device)
+    phase_done("pair_codes and oracle", t_start)
     records[1]["launches"] = counts["fused_census_partials"]
     records[2]["launches"] = counts["tricode_histogram"]
 

@@ -23,6 +23,14 @@ Public API::
     c0 = session.census()
     c1 = session.update(add_src, add_dst, del_src, del_dst)
 
+    # partitioned over 4 logical devices (one card: 4 streams on cuda:0)
+    engine = CensusEngine(devices=default_devices(4), partition=True)
+    census = engine.run(g, max_items=2**24)     # async, K-window megasteps
+    print(engine.stats.summary())
+    print(shard_report(partition_graph(g, num_shards=4)))
+    CensusEngine(devices=default_devices(4), partition_2d=(2, 2),
+                 schedule="lockstep").run(g, max_items=2**24)
+
 Backends map one-to-one onto ``repro``'s:
 
 ============  ================  =========================================
@@ -46,8 +54,12 @@ from repro_torch.core.census_ref import (
 from repro_torch.core.digraph import (
     CompactDigraph, GraphDelta, apply_delta, canonical_pairs, from_dense,
     from_edges, from_pairs, to_dense)
+from repro_torch.core.distributed import (
+    default_devices, shard_report, triad_census_distributed,
+    triad_census_graph)
 from repro_torch.core.engine import (
-    EMIT_MODES, CensusEngine, EngineSession, EngineStats)
+    EMIT_MODES, MAX_WINDOWS_PER_DISPATCH, PIPELINE_DEPTH, SCHEDULES,
+    CensusEngine, EngineSession, EngineStats, LogicalDevice)
 from repro_torch.core.generators import (
     PAPER_WORKLOADS, erdos_renyi_digraph, paper_workload,
     scale_free_digraph)
@@ -55,8 +67,13 @@ from repro_torch.core.incremental import (
     affected_pair_ids, subset_contribution, subset_descriptor_windows,
     verify_delta_closure)
 from repro_torch.core.pair_index import IndexCorruptionError, PairSpaceIndex
+from repro_torch.core.partition import (
+    GraphPartition, GraphPartition2D, LocalShard, PartitionStats,
+    extract_shard, lpt_assign, lpt_assign_heap, partition_graph,
+    partition_graph_2d, stacked_device_arrays, vertex_slices)
 from repro_torch.core.plan_stream import (
-    PlanChunk, PlanChunker, iter_plan_chunks)
+    PlanChunk, PlanChunker, ShardSchedule, ShardStreamPipeline,
+    WindowBatcher, iter_plan_chunks)
 from repro_torch.core.planner import (
     CensusPlan, DescriptorWindow, PairSpace, PlanOverflowError,
     base_for_pairs, build_plan, descriptor_window, emit_items,
@@ -71,13 +88,21 @@ __all__ = [
     "census_batagelj_mrvar", "census_bruteforce", "census_dict",
     "CompactDigraph", "GraphDelta", "apply_delta", "canonical_pairs",
     "from_dense", "from_edges", "from_pairs", "to_dense",
-    "EMIT_MODES", "CensusEngine", "EngineSession", "EngineStats",
+    "default_devices", "shard_report", "triad_census_distributed",
+    "triad_census_graph",
+    "EMIT_MODES", "MAX_WINDOWS_PER_DISPATCH", "PIPELINE_DEPTH",
+    "SCHEDULES", "CensusEngine", "EngineSession", "EngineStats",
+    "LogicalDevice",
     "affected_pair_ids", "subset_contribution",
     "subset_descriptor_windows", "verify_delta_closure",
     "IndexCorruptionError", "PairSpaceIndex",
     "PAPER_WORKLOADS", "erdos_renyi_digraph", "paper_workload",
     "scale_free_digraph",
-    "PlanChunk", "PlanChunker", "iter_plan_chunks",
+    "GraphPartition", "GraphPartition2D", "LocalShard", "PartitionStats",
+    "extract_shard", "lpt_assign", "lpt_assign_heap", "partition_graph",
+    "partition_graph_2d", "stacked_device_arrays", "vertex_slices",
+    "PlanChunk", "PlanChunker", "ShardSchedule", "ShardStreamPipeline",
+    "WindowBatcher", "iter_plan_chunks",
     "CensusPlan", "DescriptorWindow", "PairSpace", "PlanOverflowError",
     "base_for_pairs", "build_plan", "descriptor_window", "emit_items",
     "emit_items_for_pairs", "iter_descriptor_windows", "pack_items",

@@ -36,7 +36,8 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.core.planner import DESC_ANCHOR_STRIDE, CensusPlan
+from repro_torch.core.planner import (
+    DESC_ANCHOR_STRIDE, CensusPlan, num_desc_anchors, split_device_words)
 from repro_torch.core.tricode import FOLD_64_TO_16
 
 BACKENDS = ("torch", "hist", "fused")
@@ -246,6 +247,39 @@ def census_partials_desc(indptr, packed, pair_u, pair_v, pair_code,
                             histogram_fn, keep_mask=keep)
 
 
+def census_partials_desc_batch(indptr, packed, pair_u, pair_v, pair_code,
+                               words_batch, idx, search_iters: int,
+                               desc_iters: int, orient: str,
+                               prune_self: bool, histogram_fn=None):
+    """K-window megastep partials: ``(hist64s (K, 64), inter3s (K, 3))``.
+
+    ``words_batch`` is a ``(K, words)`` int32 batch of stacked
+    :meth:`repro_torch.core.planner.DescriptorWindow.device_words` rows,
+    all of the schedule-wide width ``1 + 3 * desc_shape + num_anchors``
+    (``num_anchors`` from the length of ``idx``).  Each row runs through
+    :func:`census_partials_desc`; a row whose word 0 (``num_preprune``) is
+    0 is padding and gives exact zeros without any compute, as the JAX
+    package's ``lax.cond`` does.  The per-row partials come back stacked,
+    int32, for the engine to merge on the host in int64.
+    """
+    num_anchors = num_desc_anchors(idx.shape[0])
+    rows = words_batch.shape[0]
+    hist = torch.zeros((rows, 64), dtype=torch.int32,
+                       device=words_batch.device)
+    inter = torch.zeros((rows, 3), dtype=torch.int32,
+                        device=words_batch.device)
+    for r in range(rows):
+        words = words_batch[r]
+        if int(words[0]) == 0:
+            continue
+        nv, dp, dc, dw, an = split_device_words(words, num_anchors)
+        hist[r], inter[r] = census_partials_desc(
+            indptr, packed, pair_u, pair_v, pair_code, dp, dc, dw, an, nv,
+            idx, search_iters, desc_iters, orient, prune_self,
+            histogram_fn)
+    return hist, inter
+
+
 def assemble_counts(n: int, base_asym: int, base_mut: int,
                     hist64: np.ndarray, inter: np.ndarray) -> np.ndarray:
     """Combine (accumulated) device partials with the closed-form bases
@@ -298,6 +332,29 @@ def desc_partials_fn(backend: str, search_iters: int, desc_iters: int,
         from repro_torch.kernels import ops as kops
         histogram_fn = kops.tricode_histogram
     return functools.partial(census_partials_desc,
+                             search_iters=search_iters,
+                             desc_iters=desc_iters, orient=orient,
+                             prune_self=prune_self,
+                             histogram_fn=histogram_fn)
+
+
+def desc_batch_partials_fn(backend: str, search_iters: int, desc_iters: int,
+                           orient: str, prune_self: bool):
+    """Megastep counterpart of :func:`desc_partials_fn`: maps the 5 graph
+    arrays, a ``(K, words)`` window batch and the resident flat-index
+    array to ``(hist64s (K, 64), inter3s (K, 3))``; ``fused`` is one CUDA
+    launch per batch."""
+    if backend == "fused":
+        from repro_torch.kernels import ops as kops
+        return functools.partial(kops.fused_census_desc_partials_batch,
+                                 search_iters=search_iters,
+                                 desc_iters=desc_iters, orient=orient,
+                                 prune_self=prune_self)
+    histogram_fn = None
+    if backend == "hist":
+        from repro_torch.kernels import ops as kops
+        histogram_fn = kops.tricode_histogram
+    return functools.partial(census_partials_desc_batch,
                              search_iters=search_iters,
                              desc_iters=desc_iters, orient=orient,
                              prune_self=prune_self,

@@ -21,12 +21,21 @@ Key properties:
 * **Fixed chunk shape.**  Every chunk's packed item arrays are padded to
   the same ``chunk_shape``, and every descriptor window to the same
   ``desc_shape``, so the engine preallocates its device buffers once.
+* **Per-shard chunking.**  :class:`ShardSchedule` locks several per-shard
+  streams (one graph shard's local pair space each,
+  :mod:`repro_torch.core.partition`) into one geometry for the
+  partitioned engine; :class:`ShardStreamPipeline` produces each shard's
+  windows on a background thread, and :class:`WindowBatcher` coalesces
+  them into fixed ``(cap, words)`` megabatches.
 
 Host-side numpy, framework-free.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
+import time
 from dataclasses import dataclass
 from typing import Iterator
 
@@ -160,6 +169,361 @@ class PlanChunker:
     def __iter__(self) -> Iterator[PlanChunk]:
         for k in range(self.num_chunks):
             yield self.chunk(k)
+
+
+class ShardSchedule:
+    """Per-shard chunk schedules under one fixed geometry.
+
+    The partitioned engine gives every device a *private* stream: shard s
+    walks its own item space in windows of ``chunk_shape`` pre-prune
+    items.  This schedule locks the per-shard :class:`PlanChunker`
+    geometries together — one common ``chunk_shape`` (the per-device slice
+    of ``max_items``) and one common ``desc_shape`` (the widest pair span
+    any shard's window can have) — so every shard's every window fits
+    the same preallocated device buffers.
+
+    Two execution disciplines consume the same geometry:
+
+    * **Lock-step** (``schedule="lockstep"``): one step launches every
+      device's window and waits for all of them; ``num_steps`` is
+      the longest shard's step count and shorter shards pad with empty
+      windows (:meth:`step_words` / :meth:`step_items` stack all shards).
+      The bit-identity oracle.
+    * **Async** (``schedule="async"``, the default): each shard's private
+      queue is walked independently — :meth:`steps_for` real windows per
+      shard, no padding steps, no inter-shard barrier
+      (:meth:`shard_step_items` / :meth:`descriptors` serve one shard's
+      window at a time).  Walltime tracks the mean shard cost instead of
+      the max.
+    """
+
+    def __init__(self, spaces, max_items: int | None, num_devices: int,
+                 mesh_shape: tuple | None = None):
+        if max_items is not None and max_items < 1:
+            raise ValueError(f"max_items must be >= 1, got {max_items}")
+        self.spaces = list(spaces)
+        if mesh_shape is not None and (
+                int(mesh_shape[0]) * int(mesh_shape[1]) != len(self.spaces)):
+            raise ValueError(
+                f"mesh_shape {tuple(mesh_shape)} does not cover "
+                f"{len(self.spaces)} shard spaces")
+        #: (pair_shards, vertex_slices) when the spaces are 2D tiles in
+        #: flat s*V+j order; queue s then serves tile
+        #: :meth:`tile_coords`(s) — geometry and dispatch are unchanged
+        self.mesh_shape = (tuple(int(x) for x in mesh_shape)
+                           if mesh_shape is not None else None)
+        w_max = max((s.num_items_preprune for s in self.spaces), default=0)
+        budget = (-(-int(max_items) // num_devices)
+                  if max_items is not None else max(w_max, 1))
+        self.max_items = max_items
+        #: fixed per-DEVICE dispatch lanes (each device expands/processes
+        #: its own ``chunk_shape`` item window per step)
+        self.chunk_shape = max(min(budget, max(w_max, 1)), 1)
+        if self.chunk_shape >= 2**31:
+            raise PlanOverflowError(
+                f"per-device chunk_shape {self.chunk_shape} exceeds int32 "
+                f"item indexing and would silently wrap the per-window "
+                f"int32 accumulator lanes; pass a smaller max_items "
+                f"budget (< 2**31 per device)")
+        self.num_steps = max(
+            (-(-s.num_items_preprune // self.chunk_shape)
+             for s in self.spaces), default=0)
+        self.desc_shape = max(
+            max_pairs_per_window(s.offsets, self.chunk_shape)
+            for s in self.spaces) if self.spaces else 1
+        self.desc_iters = DESC_SEARCH_ITERS
+        self.num_anchors = num_desc_anchors(self.chunk_shape)
+
+    @property
+    def num_shards(self) -> int:
+        return len(self.spaces)
+
+    def tile_coords(self, s: int) -> tuple:
+        """Shard index → (pair shard, vertex slice) mesh coordinates;
+        identity-on-axis-0 for 1D schedules (slice 0)."""
+        if self.mesh_shape is None:
+            return (s, 0)
+        return (s // self.mesh_shape[1], s % self.mesh_shape[1])
+
+    def steps_for(self, s: int) -> int:
+        """Shard ``s``'s REAL step count: the windows that actually carry
+        pre-prune items (``num_steps`` minus this shard's lock-step
+        padding)."""
+        return -(-self.spaces[s].num_items_preprune // self.chunk_shape)
+
+    @property
+    def shard_steps(self) -> list:
+        """Per-shard real step counts — the async schedule's work list
+        and the lock-step schedule's idle accounting
+        (``idle = num_steps * num_shards - sum(shard_steps)``)."""
+        return [self.steps_for(s) for s in range(self.num_shards)]
+
+    @property
+    def total_windows(self) -> int:
+        """Total real windows across every shard — the async path's
+        dispatch count (lock-step dispatches
+        ``num_steps * num_shards`` window lanes instead)."""
+        return sum(self.shard_steps)
+
+    def _bounds(self, s: int, k: int) -> tuple[int, int]:
+        """Item window [lo, hi) of shard ``s`` at step ``k`` — empty (at
+        the space's end) once the shard's own queue is exhausted."""
+        total = self.spaces[s].num_items_preprune
+        lo = min(k * self.chunk_shape, total)
+        return lo, min(lo + self.chunk_shape, total)
+
+    def descriptors(self, s: int, k: int) -> DescriptorWindow:
+        """Shard ``s``'s descriptor window at step ``k`` (possibly empty)."""
+        lo, hi = self._bounds(s, k)
+        return descriptor_window(self.spaces[s].offsets, lo, hi,
+                                 self.desc_shape, self.num_anchors)
+
+    def step_words(self, k: int) -> np.ndarray:
+        """All shards' step-``k`` windows as one (num_shards, words) int32
+        buffer — the sharded per-step upload of the device-emission path."""
+        return np.stack([self.descriptors(s, k).device_words()
+                         for s in range(self.num_shards)])
+
+    def shard_step_items(self, s: int, k: int
+                         ) -> tuple[np.ndarray, np.ndarray, int]:
+        """Shard ``s``'s step-``k`` packed item window
+        ((chunk_shape,) sp/pv words + valid item count) — the per-shard
+        unit the async path dispatches one at a time."""
+        lo, hi = self._bounds(s, k)
+        item_pair, item_slot, item_side = emit_items(self.spaces[s],
+                                                     lo, hi)
+        sp, pv = pad_and_pack(item_pair, item_slot, item_side,
+                              self.chunk_shape)
+        return sp, pv, int(item_pair.shape[0])
+
+    def step_items(self, k: int
+                   ) -> tuple[np.ndarray, np.ndarray, list[int]]:
+        """All shards' step-``k`` packed item windows, stacked
+        (num_shards, chunk_shape), plus per-shard valid item counts — the
+        host-emission twin of :meth:`step_words`."""
+        sps, pvs, nums = [], [], []
+        for s in range(self.num_shards):
+            sp, pv, num = self.shard_step_items(s, k)
+            nums.append(num)
+            sps.append(sp)
+            pvs.append(pv)
+        return np.stack(sps), np.stack(pvs), nums
+
+
+#: end-of-stream sentinel of :class:`ShardStreamPipeline` producers
+_STREAM_DONE = object()
+
+
+class WindowBatcher:
+    """Adaptive K-window megabatch coalescer for the async pipeline.
+
+    :meth:`wrap` turns a per-shard descriptor-window source (a stream of
+    ``DescriptorWindow.device_words()`` rows, all of one schedule-wide
+    length ``words``) into a stream of fixed-shape megabatches: each
+    yield is ``(buffer, real)`` where ``buffer`` is ``(cap, words)``
+    int32 holding up to the CURRENT ``k`` stacked window rows and
+    ``real`` counts them.  Rows past ``real`` stay all-zero — their
+    leading ``num_preprune`` word is 0, so the megastep gives them exact
+    zeros and skips their work
+    (:func:`repro_torch.core.census.census_partials_desc_batch`) — and
+    the buffer shape never depends on ``k``, so one pair of device
+    buffers serves every batch however many real windows land.
+
+    ``k`` adapts in [1, cap] from live pipeline feedback, one monotone
+    move per signal:
+
+    * :meth:`shrink` (consumer stalled: every queue empty while batches
+      remain — the producers are the bottleneck) halves ``k`` so
+      smaller batches reach the device sooner and the pipeline stays
+      full;
+    * :meth:`grow` (producer backlogged: a put found its queue full —
+      the consumer/device side is the bottleneck) doubles ``k`` toward
+      ``cap`` to amortize more Python dispatch overhead per step.
+
+    ``k`` starts at ``cap`` (greedy: in the dispatch-bound regime the
+    batcher exists for, producers outrun the consumer and full batches
+    are right from the first dispatch).  Reads/writes of the single
+    ``k`` int are atomic under the GIL; a batch snapshots ``k`` when it
+    starts filling, so adaptive moves apply from the next batch on.
+    """
+
+    def __init__(self, cap: int, words: int, start: int | None = None):
+        if cap < 1:
+            raise ValueError(f"cap must be >= 1, got {cap}")
+        if words < 1:
+            raise ValueError(f"words must be >= 1, got {words}")
+        self.cap = int(cap)
+        self.words = int(words)
+        self.k = self.cap if start is None \
+            else max(1, min(int(start), self.cap))
+
+    def shrink(self) -> None:
+        """Producer-starved signal: halve ``k`` (floor 1)."""
+        self.k = max(1, self.k // 2)
+
+    def grow(self) -> None:
+        """Consumer-backlogged signal: double ``k`` (cap ``cap``)."""
+        self.k = min(self.cap, self.k * 2)
+
+    def wrap(self, source):
+        """Generator coalescing ``source``'s window rows into
+        ``(buffer (cap, words) int32, real)`` megabatches of at most
+        the current ``k`` windows each."""
+        it = iter(source)
+        while True:
+            take = self.k
+            buf = np.zeros((self.cap, self.words), dtype=np.int32)
+            real = 0
+            for row in it:
+                buf[real] = row
+                real += 1
+                if real >= take:
+                    break
+            if real == 0:
+                return
+            yield buf, real
+
+
+class ShardStreamPipeline:
+    """Background per-shard window producers feeding a round-robin
+    consumer — the host half of the async partitioned pipeline.
+
+    One daemon thread per shard runs that shard's ``source`` generator
+    (descriptor-window packing or item emission — numpy host work only;
+    every upload and launch stays on the consuming thread) into a
+    private bounded queue of ``depth`` windows, so window k+1's
+    generation overlaps window k's upload + device compute and no
+    shard's production ever waits on another's.  ``depth=2``
+    double-buffers: one window in flight to the device, one pre-built
+    behind it.
+
+    Iterating the pipeline yields ``(shard, window)`` in round-robin
+    order over whichever shards have a window ready — a fast shard is
+    never held back by a slow one (no barrier); drained shards (their
+    ``_STREAM_DONE`` sentinel consumed) leave the rotation immediately.
+    When *no* live shard has a window ready the consumer blocks on the
+    first live queue and counts a **stall** (producer-bound moments,
+    surfaced as ``EngineStats.stall_steps``).  A producer's exception
+    re-raises in the consumer; :meth:`close` unblocks and joins the
+    threads (the pipeline is a context manager).
+
+    ``batch`` (optional) is a :class:`WindowBatcher`: each source is
+    wrapped so its producer thread coalesces up to the batcher's current
+    ``k`` windows into one fixed-shape megabatch per queue item, and the
+    pipeline feeds the batcher its adaptive signals — consumer stalls
+    call :meth:`WindowBatcher.shrink` (only once something has been
+    consumed, so startup latency is not mistaken for producer
+    starvation) and producer backlog (a put finding its queue full)
+    calls :meth:`WindowBatcher.grow`, once per blocked window.
+    """
+
+    _POLL = 0.05
+
+    def __init__(self, sources, depth: int = 2, batch=None):
+        if depth < 1:
+            raise ValueError(f"depth must be >= 1, got {depth}")
+        self.depth = int(depth)
+        self.batch = batch
+        self.stalls = 0
+        self._consumed = 0
+        self._stop = threading.Event()
+        sources = list(sources)
+        self._live = set(range(len(sources)))
+        self._queues = [queue.Queue(maxsize=self.depth) for _ in sources]
+        self._threads = []
+        for s, src in enumerate(sources):
+            if batch is not None:
+                src = batch.wrap(src)
+            t = threading.Thread(target=self._produce,
+                                 args=(self._queues[s], src), daemon=True)
+            t.start()
+            self._threads.append(t)
+
+    def __enter__(self) -> "ShardStreamPipeline":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.close()
+
+    def _offer(self, q: queue.Queue, item) -> bool:
+        """Stop-aware put: lands ``item`` or gives up once :meth:`close`
+        has been called (the consumer is gone — nobody will ever drain a
+        full queue, so an unconditional put would strand the thread)."""
+        backlogged = False
+        while not self._stop.is_set():
+            try:
+                q.put_nowait(item)
+                return True
+            except queue.Full:
+                pass
+            if not backlogged and self.batch is not None \
+                    and item is not _STREAM_DONE \
+                    and not isinstance(item, BaseException):
+                # consumer behind: one grow signal per blocked window,
+                # not per retry
+                self.batch.grow()
+                backlogged = True
+            time.sleep(0.002)
+        return False
+
+    def _produce(self, q: queue.Queue, source) -> None:
+        try:
+            for window in source:
+                if not self._offer(q, window):
+                    return
+        except BaseException as exc:
+            # surfaces in the consumer, which re-raises it
+            self._offer(q, exc)
+            return
+        self._offer(q, _STREAM_DONE)
+
+    def _resolve(self, item, s: int):
+        if item is _STREAM_DONE:
+            # drained: out of the rotation for good — never polled again
+            self._live.discard(s)
+            return None
+        if isinstance(item, BaseException):
+            raise item
+        self._consumed += 1
+        return (s, item)
+
+    def __iter__(self):
+        while self._live:
+            progressed = False
+            for s in sorted(self._live):
+                try:
+                    item = self._queues[s].get_nowait()
+                except queue.Empty:
+                    continue
+                progressed = True
+                got = self._resolve(item, s)
+                if got is not None:
+                    yield got
+            if not progressed and self._live:
+                # every live producer is mid-generation: block on the
+                # lowest shard and record the stall
+                self.stalls += 1
+                if self.batch is not None and self._consumed:
+                    self.batch.shrink()
+                s = min(self._live)
+                got = self._resolve(self._queues[s].get(), s)
+                if got is not None:
+                    yield got
+
+    def close(self) -> None:
+        """Stop the producers, drain the queues, and join the threads
+        (idempotent); safe mid-iteration.  Draining frees a producer
+        blocked on a full queue at once, so the join reaps every
+        thread."""
+        self._stop.set()
+        for q in self._queues:
+            while True:
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+        for t in self._threads:
+            t.join(timeout=1.0)
 
 
 def iter_plan_chunks(g: CompactDigraph, max_items: int,

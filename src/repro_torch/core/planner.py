@@ -210,6 +210,20 @@ def pair_space(g: CompactDigraph, orient: str = "none",
                            prune_self=prune_self)
 
 
+def searchsorted_many(a: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """``np.searchsorted(a, v)`` for many queries, searched in ascending
+    order: on a large ``a`` each query of a random order misses the cache
+    at nearly every probe, an ascending run of queries mostly hits it.
+    The same result, in ``v``'s order."""
+    v = np.asarray(v)
+    if v.shape[0] < 2**16:
+        return np.searchsorted(a, v)
+    order = np.argsort(v)
+    out = np.empty(v.shape[0], dtype=np.intp)
+    out[order] = np.searchsorted(a, v[order])
+    return out
+
+
 def postprune_pair_counts(space: PairSpace,
                           pair_ids: np.ndarray | None = None,
                           entry_key: np.ndarray | None = None
@@ -241,7 +255,7 @@ def postprune_pair_counts(space: PairSpace,
         entry_key = rows * space.n + space.nbr.astype(np.int64)
     pos_v_in_u = (np.searchsorted(entry_key, pu * space.n + pv)
                   - space.indptr[pu])
-    pos_u_in_v = (np.searchsorted(entry_key, pv * space.n + pu)
+    pos_u_in_v = (searchsorted_many(entry_key, pv * space.n + pu)
                   - space.indptr[pv])
     deg_u = space.deg[pu].astype(np.int64)
     deg_v = space.deg[pv].astype(np.int64)

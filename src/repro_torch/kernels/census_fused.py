@@ -20,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.planner import DESC_ANCHOR_STRIDE
+from repro_torch.core.planner import DESC_ANCHOR_STRIDE, num_desc_anchors
 from repro_torch.kernels import build
 
 #: work items per CUDA block of either kernel (256 threads, 16 items
@@ -45,6 +45,9 @@ PACKED_PAD = 2**31 - 1
 
 #: output words: hist64, inter-asym, inter-mut, kept
 OUT_WORDS = 67
+
+#: most windows one megastep launch takes (the grid's y extent)
+MAX_BATCH_ROWS = 65535
 
 #: ``keep_mode`` codes of ``census_fused_desc_launch`` (lane 2's
 #: plan-time pruning predicate)
@@ -208,6 +211,51 @@ def census_fused_desc_kernel(indptr, packed, pair_u, pair_v, pair_code,
     return _launch_desc(indptr, packed, pair_u, pair_v, pair_code,
                         desc_pair, desc_cum, desc_within0, anchors,
                         num_valid, idx, orient, prune_self, probe=False)[0]
+
+
+def census_fused_desc_batch_kernel(indptr, packed, pair_u, pair_v,
+                                   pair_code, words_batch, idx, orient: str,
+                                   prune_self: bool) -> torch.Tensor:
+    """Launch the K-window megastep on CUDA tensors: one launch of grid
+    (tiles, K) runs ``census_fused_desc``'s body on every row of the
+    row-major ``(K, words)`` int32 ``words_batch``
+    (:meth:`repro_torch.core.planner.DescriptorWindow.device_words` rows
+    of one geometry: ``words = 1 + 3 * num_descs + num_anchors`` with
+    ``num_anchors = num_desc_anchors(len(idx))``), each row expanding the
+    same flat-index array ``idx``.
+
+    Returns the ``int32 (K, 67)`` output, zeroed by a memset in the same
+    C call: row y is what ``census_fused_desc_kernel`` returns for row y,
+    and a row whose word 0 is 0 stays all zero.  Launches on the current
+    stream and does not synchronise.
+    """
+    device, ptrs = _graph_pointers("census_fused_desc_batch_kernel", indptr,
+                                   packed, pair_u, pair_v, pair_code)
+    if (not isinstance(words_batch, torch.Tensor)
+            or words_batch.device != device
+            or words_batch.dtype != torch.int32 or words_batch.dim() != 2
+            or not words_batch.is_contiguous()):
+        raise ValueError("words_batch must be a row-major (K, words) int32 "
+                         f"tensor on {device}")
+    rows, width = words_batch.shape
+    num_anchors = num_desc_anchors(idx.shape[0])
+    num_descs = (width - 1 - num_anchors) // 3
+    if num_descs < 1 or width != 1 + 3 * num_descs + num_anchors:
+        raise ValueError(f"a batch row of {width} words is no descriptor "
+                         f"window of {num_anchors} anchors")
+    if not 1 <= rows <= MAX_BATCH_ROWS:
+        raise ValueError(f"a batch holds 1 to {MAX_BATCH_ROWS} windows, "
+                         f"got {rows}")
+    ptrs += [words_batch.data_ptr(), build.require_vector("idx", idx, device)]
+    out = torch.empty((rows, OUT_WORDS), dtype=torch.int32, device=device)
+    lib = build.load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.census_fused_desc_batch_launch(
+            *ptrs, rows, width, num_descs, num_anchors, idx.shape[0],
+            _keep_mode(orient, prune_self), out.data_ptr(), stream)
+    build.check(lib, err, "census_fused_desc_batch")
+    return out
 
 
 class DescProbe(NamedTuple):

@@ -5,6 +5,11 @@
 //     device emission: flat item index -> (pair, slot, side) by an
 //     anchored lower-bound search over the window's descriptor table,
 //     then classify and fold; the main path, one launch per window.
+//   the same kernel under lax.scan over a (K, words) window batch
+//   (src/repro/core/census.py census_partials_desc_batch, the async
+//   partitioned megastep)                        -> census_fused_desc_batch
+//     one launch of grid (tiles, K) runs the same body, desc_tile(), on
+//     every row; the single-window kernel is that body at grid (tiles).
 //   census_fused_kernel (body _kernel)           -> census_fused_items
 //     host emission: the same classify-and-fold fed packed item words
 //     item_sp = slot << 1 | side, item_pv = pair << 1 | valid.
@@ -448,17 +453,23 @@ __device__ __forceinline__ Item resolve_staged(const short* s_tab,
   return x;
 }
 
-// kProbe also records which branch ran: tile_staged[tile] whether the
-// tile staged its lane table, lane_staged[position] whether that lane
-// resolved from it (census_fused_desc_probe_launch; the main path runs
-// the kProbe = false instance, which writes neither).
+// The body of both desc kernels: tile blockIdx.x of one descriptor
+// window, folded into out.  (The tile is read from blockIdx.x here, not
+// passed in: with a tile parameter ptxas gave census_fused_desc 40
+// registers instead of 48.)  kProbe also records which branch ran:
+// tile_staged[tile] whether the tile staged its lane table,
+// lane_staged[position] whether that lane resolved from it
+// (census_fused_desc_probe_launch; the main path runs the kProbe = false
+// instance, which writes neither).
 template <bool kProbe>
-__global__ void __launch_bounds__(kThreads)
-census_fused_desc(GraphArrays g, DescWindow win,
-                  const int* __restrict__ num_valid_ptr,
-                  const int* __restrict__ idx, int num_items, int keep_mode,
-                  int* __restrict__ out, int* __restrict__ tile_staged,
-                  int* __restrict__ lane_staged) {
+__device__ __forceinline__ void desc_tile(const GraphArrays& g,
+                                          const DescWindow& win,
+                                          const int* __restrict__ num_valid_ptr,
+                                          const int* __restrict__ idx,
+                                          int num_items, int keep_mode,
+                                          int* __restrict__ out,
+                                          int* __restrict__ tile_staged,
+                                          int* __restrict__ lane_staged) {
   __shared__ int s_cum[kStageDescs];
   __shared__ StagedDesc s_desc[kStageDescs];
   __shared__ int s_anchor[kStageAnchors];
@@ -530,6 +541,42 @@ census_fused_desc(GraphArrays g, DescWindow win,
     classify_fold(g.packed, it, keep_mode, s_acc, lanes);
   }
   flush(s_acc, lanes, out);
+}
+
+// One descriptor window: block x runs tile x.
+template <bool kProbe>
+__global__ void __launch_bounds__(kThreads)
+census_fused_desc(GraphArrays g, DescWindow win,
+                  const int* __restrict__ num_valid_ptr,
+                  const int* __restrict__ idx, int num_items, int keep_mode,
+                  int* __restrict__ out, int* __restrict__ tile_staged,
+                  int* __restrict__ lane_staged) {
+  desc_tile<kProbe>(g, win, num_valid_ptr, idx, num_items, keep_mode, out,
+                    tile_staged, lane_staged);
+}
+
+// The K-window megastep: row y of the (K, row_stride) int32 batch is one
+// DescriptorWindow.device_words() row -- num_preprune, then num_descs
+// desc_pair, desc_cum and desc_within0 words, then num_anchors anchors
+// -- and block (x, y) runs tile x of it into out[y] (int32[67] each).
+// A padding row (word 0 == 0) returns before any work, block-uniformly
+// and before the first barrier: its output row stays zero, as the
+// reference's lax.cond leaves it.
+__global__ void __launch_bounds__(kThreads)
+census_fused_desc_batch(GraphArrays g, const int* __restrict__ words,
+                        int row_stride, int num_descs, int num_anchors,
+                        const int* __restrict__ idx, int num_items,
+                        int keep_mode, int* __restrict__ out) {
+  const int* row = words + static_cast<long long>(blockIdx.y) * row_stride;
+  if (__ldg(row) == 0) return;
+  const DescWindow win{row + 1,
+                       row + 1 + num_descs,
+                       row + 1 + 2 * num_descs,
+                       row + 1 + 3 * num_descs,
+                       num_descs,
+                       num_anchors};
+  desc_tile<false>(g, win, row, idx, num_items, keep_mode,
+                   out + blockIdx.y * kOutWords, nullptr, nullptr);
 }
 
 // ---- host-emission kernel: runs of one pair staged per tile ----
@@ -1036,6 +1083,32 @@ int census_fused_desc_probe_launch(
                            desc_pair, desc_cum, desc_within0, anchors,
                            num_valid, idx, num_items, num_descs, num_anchors,
                            keep_mode, out, tile_staged, lane_staged, stream);
+}
+
+// The K-window megastep: words is a (num_rows, row_stride) int32 batch of
+// descriptor windows of one geometry (num_descs descriptors, num_anchors
+// anchors; row_stride = 1 + 3 num_descs + num_anchors), idx the
+// num_items-lane flat-index array every row expands.  out: int32
+// [num_rows][67], zeroed here (one memset on the stream) and then
+// accumulated, row y from batch row y; rows whose word 0 is 0 stay zero.
+// Returns the memset's error, else cudaGetLastError() after the launch.
+int census_fused_desc_batch_launch(const int* indptr, const int* packed,
+                                   const int* pair_u, const int* pair_v,
+                                   const int* pair_code, const int* words,
+                                   const int* idx, int num_rows,
+                                   int row_stride, int num_descs,
+                                   int num_anchors, int num_items,
+                                   int keep_mode, int* out, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = cudaMemsetAsync(
+      out, 0, sizeof(int) * kOutWords * static_cast<size_t>(num_rows), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const GraphArrays g{indptr, packed, pair_u, pair_v, pair_code};
+  const dim3 grid(num_blocks(num_items), num_rows);
+  census_fused_desc_batch<<<grid, kThreads, 0, st>>>(
+      g, words, row_stride, num_descs, num_anchors, idx, num_items,
+      keep_mode, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // out: zeroed int32[67] -- hist64, inter-asym, inter-mut (lane 66 stays 0).

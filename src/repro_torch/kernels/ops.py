@@ -24,9 +24,12 @@ tricode_histogram_ref = ref.tricode_histogram_ref
 pair_codes_ref = ref.pair_codes_ref
 fused_census_partials_ref = ref.fused_census_partials_ref
 fused_census_desc_partials_ref = ref.fused_census_desc_partials_ref
+fused_census_desc_partials_batch_ref = ref.fused_census_desc_partials_batch_ref
 
 __all__ = [
     "BLOCK_ITEMS", "IDX_PAD", "PACKED_PAD", "fused_census_desc_partials",
+    "fused_census_desc_partials_batch",
+    "fused_census_desc_partials_batch_ref",
     "fused_census_desc_partials_ref", "fused_census_partials",
     "fused_census_partials_ref", "pair_codes", "pair_codes_ref",
     "reset_launch_counts", "tricode_histogram", "tricode_histogram_ref",
@@ -132,10 +135,35 @@ def fused_census_desc_partials(indptr, packed, pair_u, pair_v, pair_code,
     return out[:64], out[64:67]
 
 
+def fused_census_desc_partials_batch(indptr, packed, pair_u, pair_v,
+                                     pair_code, words_batch, idx,
+                                     search_iters: int, desc_iters: int,
+                                     orient: str, prune_self: bool):
+    """K-window megastep partials: ``(hist64s (K, 64), inter3s (K, 3))``.
+
+    Drop-in replacement for :func:`repro_torch.core.census
+    .census_partials_desc_batch` (backend ``"fused"``): one launch runs
+    every row of the ``(K, words)`` descriptor-window batch through the
+    desc kernel's body; rows whose word 0 is 0 are padding and come back
+    as zeros.  Counts its own launches, apart from the single-window
+    wrapper's.
+    """
+    if _on_cpu(indptr, packed, pair_u, pair_v, pair_code, words_batch, idx):
+        return fused_census_desc_partials_batch_ref(
+            indptr, packed, pair_u, pair_v, pair_code, words_batch, idx,
+            search_iters, desc_iters, orient, prune_self)
+    out = census_fused.census_fused_desc_batch_kernel(
+        indptr, packed, pair_u, pair_v, pair_code, words_batch, idx,
+        orient, prune_self)
+    fused_census_desc_partials_batch.launches += 1
+    return out[:, :64], out[:, 64:67]
+
+
 def reset_launch_counts() -> None:
     """Set every wrapper's launch count to 0."""
     for fn in (tricode_histogram, fused_census_partials,
-               fused_census_desc_partials, pair_codes):
+               fused_census_desc_partials, fused_census_desc_partials_batch,
+               pair_codes):
         fn.launches = 0
 
 

@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.census import census_partials, census_partials_desc
+from repro_torch.core.census import (
+    census_partials, census_partials_desc, census_partials_desc_batch)
 
 
 def tricode_histogram_ref(tricode_masked: torch.Tensor) -> torch.Tensor:
@@ -46,3 +47,14 @@ def fused_census_desc_partials_ref(indptr, packed, pair_u, pair_v,
         indptr, packed, pair_u, pair_v, pair_code, desc_pair, desc_cum,
         desc_within0, anchors, num_valid, idx, search_iters, desc_iters,
         orient, prune_self)
+
+
+def fused_census_desc_partials_batch_ref(indptr, packed, pair_u, pair_v,
+                                         pair_code, words_batch, idx,
+                                         search_iters: int, desc_iters: int,
+                                         orient: str, prune_self: bool):
+    """``(hist64s (K, 64), inter3s (K, 3))`` int32 from a ``(K, words)``
+    batch of descriptor windows; zero rows give zeros."""
+    return census_partials_desc_batch(
+        indptr, packed, pair_u, pair_v, pair_code, words_batch, idx,
+        search_iters, desc_iters, orient, prune_self)

@@ -642,3 +642,167 @@ def test_fused_session_on_card_matches_cpu(cuda, emit, orient, max_items):
             assert getattr(sessions[0].stats, field) == \
                 getattr(sessions[1].stats, field), (k, field)
     assert sessions[0].stats.chunks > 0
+
+
+def shard_schedule(g, max_items, orient="none", mesh=None, shards=4):
+    """The windows of a partitioned run: one ``ShardSchedule`` over the
+    shards (or 2D tiles) of ``g``."""
+    from repro_torch.core.partition import (partition_graph,
+                                            partition_graph_2d)
+    space = rt.pair_space(g, orient=orient)
+    part = (partition_graph(num_shards=shards, space=space) if mesh is None
+            else partition_graph_2d(space=space, mesh_shape=mesh))
+    sched = rt.ShardSchedule([sh.space for sh in part.shards], max_items,
+                             len(part.shards), mesh_shape=mesh)
+    return part, sched
+
+
+def hold_batch(graph, batch, idx, orient, search_iters, desc_iters):
+    """One megastep launch on a (K, words) batch against the plain
+    version and, row for row, against single-window launches of each
+    row (zero rows: zeros, and no single launch)."""
+    args = (search_iters, desc_iters, orient, True)
+    before = ops.fused_census_desc_partials_batch.launches
+    got = ops.fused_census_desc_partials_batch(*graph, batch, idx, *args)
+    assert ops.fused_census_desc_partials_batch.launches == before + 1
+    want = ops.fused_census_desc_partials_batch_ref(*graph, batch, idx,
+                                                    *args)
+    assert_same(got, want)
+    assert got[0].shape == (batch.shape[0], 64)
+    assert got[1].shape == (batch.shape[0], 3)
+    anchors = ck_anchors(idx)
+    for r in range(batch.shape[0]):
+        if int(batch[r, 0]) == 0:
+            assert not bool(got[0][r].any()) and not bool(got[1][r].any())
+            continue
+        nv, dp, dc, dw, an = split_device_words(batch[r], anchors)
+        single = ops.fused_census_desc_partials(*graph, dp, dc, dw, an, nv,
+                                                idx, *args)
+        assert_same((got[0][r], got[1][r]), single)
+    return got
+
+
+def ck_anchors(idx):
+    from repro_torch.core.planner import num_desc_anchors
+    return num_desc_anchors(idx.shape[0])
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("orient", ["none", "degree"])
+def test_desc_batch_matches_singles(cuda, k, orient):
+    """K full rows of one shard's windows (a hub graph's 1D shards)."""
+    g = rt.paper_workload("orkut", 1000, 20.0, seed=0)
+    part, sched = shard_schedule(g, 2**16, orient)
+    graph = tuple(torch.from_numpy(a[0]).to(cuda)
+                  for a in rt.stacked_device_arrays(part.shards))
+    idx = torch.arange(sched.chunk_shape, dtype=torch.int32, device=cuda)
+    rows = [sched.descriptors(0, j).device_words()
+            for j in range(sched.steps_for(0))]
+    assert len(rows) >= 8
+    batch = torch.from_numpy(np.stack(rows[:k])).to(cuda)
+    hold_batch(graph, batch, idx, orient, part.space.search_iters,
+               sched.desc_iters)
+
+
+def test_desc_batch_zero_rows(cuda):
+    """A 5-of-8 batch as the batcher pads it (rows 5-7 all zero), and
+    zero rows between real ones."""
+    g = rt.paper_workload("orkut", 600, 12.0, seed=2)
+    part, sched = shard_schedule(g, 3000)
+    graph = tuple(torch.from_numpy(a[1]).to(cuda)
+                  for a in rt.stacked_device_arrays(part.shards))
+    idx = torch.arange(sched.chunk_shape, dtype=torch.int32, device=cuda)
+    rows = [sched.descriptors(1, j).device_words()
+            for j in range(sched.steps_for(1))]
+    buf, real = next(rt.WindowBatcher(8, rows[0].shape[0]).wrap(rows[:5]))
+    assert real == 5
+    hold_batch(graph, torch.from_numpy(buf).to(cuda), idx, "none",
+               part.space.search_iters, sched.desc_iters)
+    gappy = np.zeros_like(buf)
+    gappy[1], gappy[4], gappy[6] = rows[0], rows[1], rows[2]
+    got = hold_batch(graph, torch.from_numpy(gappy).to(cuda), idx, "none",
+                     part.space.search_iters, sched.desc_iters)
+    assert int(got[1][:, 2].sum()) > 0
+
+
+@pytest.mark.parametrize("max_items", [1, 2, 3, 4, 5])
+def test_desc_batch_2d_tiles_tiny_budgets(cuda, max_items):
+    """2D tiles hold pairs with a single in-slice item; at budgets of
+    1-5 items (per device: the budget over 4 tiles, at least 1) every
+    row of every tile's batches, held as above."""
+    g = star_with_pendants()
+    for orient in ("none", "degree"):
+        part, sched = shard_schedule(g, max_items, orient, mesh=(2, 2))
+        arrays = rt.stacked_device_arrays(part.shards)
+        idx = torch.arange(sched.chunk_shape, dtype=torch.int32,
+                           device=cuda)
+        words = 1 + 3 * sched.desc_shape + sched.num_anchors
+        for s in range(len(part.shards)):
+            graph = tuple(torch.from_numpy(a[s]).to(cuda) for a in arrays)
+            rows = (sched.descriptors(s, j).device_words()
+                    for j in range(sched.steps_for(s)))
+            for buf, _ in rt.WindowBatcher(4, words).wrap(rows):
+                hold_batch(graph, torch.from_numpy(buf).to(cuda), idx,
+                           orient, part.space.search_iters,
+                           sched.desc_iters)
+
+
+def test_desc_batch_rejects_bad_batches(cuda):
+    g = hub_graph()
+    part, sched = shard_schedule(g, 40, shards=2)
+    graph = tuple(torch.from_numpy(a[0]).to(cuda)
+                  for a in rt.stacked_device_arrays(part.shards))
+    idx = torch.arange(sched.chunk_shape, dtype=torch.int32, device=cuda)
+    row = sched.descriptors(0, 0).device_words()
+    batch = torch.from_numpy(np.stack([row, row])).to(cuda)
+    args = (part.space.search_iters, sched.desc_iters, "none", True)
+    before = ops.fused_census_desc_partials_batch.launches
+    for bad in (batch[:, :-1], batch.t(), batch.long(), batch[0],
+                batch[:0], batch.cpu()):
+        with pytest.raises((ValueError, TypeError)):
+            ops.fused_census_desc_partials_batch(*graph, bad, idx, *args)
+    assert ops.fused_census_desc_partials_batch.launches == before
+
+
+@pytest.mark.parametrize("schedule, mesh", [
+    ("async", None), ("lockstep", None), ("async", (2, 2))])
+@pytest.mark.parametrize("emit", ["device", "host"])
+def test_partitioned_run_on_card_matches_cpu(cuda, schedule, mesh, emit):
+    """A partitioned run over 4 logical devices on the card (4 streams
+    on one card) against the same run on the CPU: equal censuses and
+    deterministic stats; the megastep's launches equal the async run's
+    dispatches, the single-window kernel's the lock-step windows."""
+    g = rt.paper_workload("orkut", 600, 12.0, seed=4)
+    kw = dict(partition=True) if mesh is None else dict(partition_2d=mesh)
+    runs = []
+    for devices in (rt.default_devices(4), rt.default_devices(4, "cpu")):
+        ops.reset_launch_counts()
+        eng = rt.CensusEngine(devices=devices, backend="fused", emit=emit,
+                              schedule=schedule, **kw)
+        runs.append((eng.run(g, max_items=3000, orient="degree"),
+                     eng.stats,
+                     ops.fused_census_desc_partials_batch.launches,
+                     ops.fused_census_desc_partials.launches,
+                     ops.fused_census_partials.launches))
+    (got, st, batch, single, items), (want, cpu_st, *_) = runs
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, rt.census_batagelj_mrvar(g))
+    for field in ("items", "shard_steps", "shard_items", "idle_steps",
+                  "plan_upload_bytes_total", "graph_resident_bytes",
+                  "dispatch_batch_limit"):
+        assert getattr(st, field) == getattr(cpu_st, field), field
+    assert sorted(st.chunk_items) == sorted(cpu_st.chunk_items)
+    if emit == "host":
+        assert batch == single == 0 and items > 0
+    elif schedule == "async":
+        assert batch == st.dispatches_total > 0 and single == items == 0
+    else:
+        assert single == st.dispatches_total * 4 and batch == items == 0
+
+
+def test_default_devices_share_one_card(cuda):
+    devs = rt.default_devices(4)
+    count = torch.cuda.device_count()
+    assert [d.device for d in devs] == [torch.device("cuda", i % count)
+                                        for i in range(4)]
+    assert len({d.stream.cuda_stream for d in devs}) == 4

@@ -24,12 +24,20 @@ def test_rehearsal_runs_every_phase_and_reports_nothing():
     assert out.returncode == 3, out.stderr[-2000:]
     for phase in ("kernel fused_census_desc_partials", "kernel "
                   "fused_census_partials", "kernel tricode_histogram",
-                  "kernel pair_codes", "patents orient=none",
+                  "kernel pair_codes",
+                  "kernel fused_census_desc_partials_batch",
+                  "1D partition of the main graph", "patents orient=none",
                   "patents orient=degree", "orkut-hub orient=degree",
                   "session orient=none", "session update k=10:",
                   "session update k=100:", "session update k=1000:",
                   "plain torch session on the card equal",
-                  "session orient=degree update", "pair_codes entry point",
+                  "session orient=degree update",
+                  "partitioned 1d async orient=none",
+                  "partitioned 1d async orient=degree",
+                  "partitioned 1d lockstep orient=none",
+                  "partitioned 2d (2, 2) async orient=none",
+                  "partitioned replicated x2 orient=none",
+                  "pair_codes entry point",
                   "oracle phase: 72 runs and 36 sessions",
                   "rehearsal complete"):
         assert phase in out.stdout, phase
