@@ -54,9 +54,19 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    at once (the kernel phase also times the megastep at 8 shard windows
    against 8 single launches, and window 0 of the 4 shards on their 4
    streams against one stream);
-7. drives the entry point ``pair_codes`` once on (B, 128) tiles cut from
+7. on the same graph and four logical devices, fault tolerance and the
+   sessions of a multi-device engine: a seeded faulty 1D async run
+   (producer error, dispatch error, a poisoned dispatch, one lane
+   retired) held to the single-device census, with its retries,
+   failovers and launches beside the fault-free wall; a checkpointed
+   run stopped half way, its journal compacted, and resumed to the same
+   census; a ``PartitionedEngineSession`` (census, then the first two
+   deltas of step 5), a ``PartitionedEngineSession2D`` (2, 2) update
+   from the 1D session's checkpointed census, and a replicated session
+   over 2 lanes, each held to step 5's from-scratch censuses;
+8. drives the entry point ``pair_codes`` once on (B, 128) tiles cut from
    the patents-size graph (row pairs of window 0);
-8. runs the small oracle workloads through every backend × orient × emit
+9. runs the small oracle workloads through every backend × orient × emit
    against the serial Batagelj–Mrvar census, as one-shot runs and as
    sessions over a short delta stream.
 
@@ -1147,7 +1157,7 @@ def session_phase(g, device, max_items: int, census_none, census_degree,
     if cuda:
         require(launches > 0, "the session phase launched no desc kernel")
     log(f"session phase: desc launches {launches}")
-    return dict(launches=launches, rows=rows)
+    return dict(launches=launches, rows=rows, deltas=deltas)
 
 
 def shard_batch_case(part, max_items: int, device, cap: int):
@@ -1345,6 +1355,7 @@ def partitioned_phase(g, device, max_items: int, part_none, part_s: float,
         ("replicated x2", "none", dict(), None, False),
     ]
     batch_launches = 0
+    walls = {}
     for label, orient, kw, part, traced in runs:
         engine = CensusEngine(devices=devices[:2] if not kw else devices,
                               backend="fused", max_windows_per_dispatch=8,
@@ -1366,6 +1377,7 @@ def partitioned_phase(g, device, max_items: int, part_none, part_s: float,
             if cuda:
                 torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        walls[(label, orient)] = wall
         batch = ops.fused_census_desc_partials_batch.launches
         single = ops.fused_census_desc_partials.launches
         st = engine.stats
@@ -1429,7 +1441,240 @@ def partitioned_phase(g, device, max_items: int, part_none, part_s: float,
             else:
                 log(f"partitioned {label} orient={orient} trace: device not "
                     f"measured")
-    return dict(batch_launches=batch_launches)
+    return dict(batch_launches=batch_launches,
+                async_wall_s=walls[("1d async", "none")])
+
+
+class _Stop(Exception):
+    """Raised by a progress callback to stop a checkpointed run."""
+
+
+#: seed of the faulty run's plan: FaultPlan.seeded(1, 4, ...) makes one
+#: producer error (shard 1), one dispatch error (lane 3), one poisoned
+#: dispatch (lane 0) and retires lane 2 at its first dispatch
+FAULT_SEED = 1
+
+
+def faults_sessions_phase(g, device, max_items: int, part, census_none,
+                          async_wall: float, session: dict) -> dict:
+    """Fault tolerance and the sessions of a multi-device engine on the
+    main graph over 4 logical devices (one card: four streams):
+
+    * a seeded faulty 1D async ``none`` run on the prebuilt partition
+      (producer error, dispatch error, a poisoned dispatch, one lane
+      retired), held to the single-device census; its megastep launches
+      at least its dispatches (a poisoned window launches again);
+    * a checkpointed 1D async run stopped by its progress callback after
+      half of its windows, its journal compacted, then resumed: the same
+      census, the journal's windows not dispatched again;
+    * a ``PartitionedEngineSession`` (census, then the session phase's
+      first two deltas), a ``PartitionedEngineSession2D`` (2, 2) that
+      adopts the 1D session's census from its checkpoint and applies the
+      first delta, and a replicated session over 2 lanes (census, first
+      delta): each census held to the single-device census and each
+      update to the session phase's from-scratch census of the edited
+      graph; each session call launches the desc kernel once per
+      dispatch.
+
+    Launch counts start from 0 just before each run or session call.
+    Returns the phase's megastep and desc-kernel launches."""
+    import tempfile
+
+    import torch
+    from repro_torch import CensusEngine, FaultPlan, default_devices
+    from repro_torch.kernels import ops
+    cuda = device.type == "cuda"
+    total = g.n * (g.n - 1) * (g.n - 2) // 6
+    devices = default_devices(4, None if cuda else "cpu")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    # ---- the seeded faulty run
+    plan = FaultPlan.seeded(FAULT_SEED, 4, producer_errors=1,
+                            dispatch_errors=1, retire_devices=1, poisons=1)
+    engine = CensusEngine(devices=devices, backend="fused", partition=True,
+                          max_windows_per_dispatch=8, faults=plan)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    census = engine.run(g, max_items=max_items, part=part)
+    sync()
+    wall = time.perf_counter() - t0
+    st = engine.stats
+    batch = ops.fused_census_desc_partials_batch.launches
+    single = ops.fused_census_desc_partials.launches
+    require((census == census_none).all(),
+            f"faulty run: {census.tolist()} != single-device census")
+    require(int(census.sum()) == total, "faulty run: census != C(n,3)")
+    require(st.retries >= 1 and st.failovers == 1
+            and len(st.retired_devices) == 1,
+            f"faulty run: retries {st.retries} failovers {st.failovers} "
+            f"retired {st.retired_devices}")
+    require(single == 0 and (batch >= st.dispatches_total if cuda
+                             else batch == 0),
+            f"faulty run: megastep launched {batch} times for "
+            f"{st.dispatches_total} dispatches (single {single})")
+    batch_launches = batch
+    fired = sorted({(f.site, f.kind) for f in plan.faults})
+    log(f"faults 1d async orient=none: plan seed {FAULT_SEED} {fired}; "
+        f"wall {wall:.3f} s (fault-free 1d async {async_wall:.3f} s, "
+        f"{wall / async_wall:.4f}x); retries {st.retries}, failovers "
+        f"{st.failovers}, retired lanes {st.retired_devices}, watchdog "
+        f"fires {st.watchdog_fires}, windows {sum(st.shard_steps)}, "
+        f"dispatches {st.dispatches_total}, megastep launches {batch} "
+        f"({batch - st.dispatches_total} beyond the dispatches), "
+        f"shard_steps {st.shard_steps}; census equal to the single-device "
+        f"census")
+
+    # ---- a checkpointed run, stopped half way and resumed
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = str(Path(tmp) / "run.ckpt")
+        engine = CensusEngine(devices=devices, backend="fused",
+                              partition=True, max_windows_per_dispatch=8)
+        half = {}
+
+        def stop(done, total_windows, num):
+            half["total"] = total_windows
+            if done + 1 >= total_windows // 2:
+                raise _Stop
+
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            engine.run(g, max_items=max_items, part=part, checkpoint=ck,
+                       progress=stop)
+            require(False, "checkpointed run was not stopped")
+        except _Stop:
+            pass
+        sync()
+        stop_wall = time.perf_counter() - t0
+        stopped_launches = ops.fused_census_desc_partials_batch.launches
+        info = CensusEngine.compact_checkpoint(ck)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        census = engine.resume(g, ck, max_items=max_items, part=part)
+        sync()
+        resume_wall = time.perf_counter() - t0
+        st = engine.stats
+        batch = ops.fused_census_desc_partials_batch.launches
+        require((census == census_none).all(),
+                f"resumed run: {census.tolist()} != uninterrupted census")
+        require(st.resumed_windows >= 1
+                and st.resumed_windows + sum(st.shard_steps)
+                == half["total"],
+                f"resumed run: {st.resumed_windows} resumed + "
+                f"{sum(st.shard_steps)} run != {half['total']} windows")
+        require(batch == (st.dispatches_total if cuda else 0),
+                f"resumed run: megastep launched {batch} times for "
+                f"{st.dispatches_total} dispatches")
+        batch_launches += stopped_launches + batch
+        log(f"checkpoint 1d async orient=none: stopped after "
+            f"{st.resumed_windows} of {half['total']} windows in "
+            f"{stop_wall:.3f} s ({stopped_launches} megastep launches); "
+            f"journal {info['records']} records {info['bytes']} bytes, "
+            f"compacted to {info['compacted']} records "
+            f"{info['compacted_bytes']} bytes; resumed {st.resumed_windows} "
+            f"windows from it and ran {sum(st.shard_steps)} in "
+            f"{st.dispatches_total} dispatches ({batch} launches), wall "
+            f"{resume_wall:.3f} s; census equal to the uninterrupted one")
+
+        # ---- sessions of a multi-device engine
+        rows, deltas = session["rows"], session["deltas"]
+        desc_launches = 0
+
+        def held(label, s, call, want):
+            nonlocal desc_launches
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            got = call()
+            sync()
+            wall = time.perf_counter() - t0
+            count = ops.fused_census_desc_partials.launches
+            require((got == want).all(),
+                    f"{label}: {got.tolist()} != {want.tolist()}")
+            require(int(got.sum()) == total, f"{label}: census != C(n,3)")
+            # a replicated dispatch launches once on each lane
+            lanes = 1 if s.stats.partitioned else s.stats.ndev
+            require(count == (s.stats.chunks * lanes if cuda else 0)
+                    and ops.fused_census_desc_partials_batch.launches == 0,
+                    f"{label}: desc kernel launched {count} times for "
+                    f"{s.stats.chunks} dispatches x {lanes} lanes")
+            desc_launches += count
+            return wall
+
+        def update_line(label, s, k, wall):
+            st = s.stats
+            dispatched = [i for i, x in enumerate(st.shard_items) if x]
+            log(f"{label} update k={k}: shards with dispatched items "
+                f"{len(dispatched)} {dispatched} of {st.ndev}, affected "
+                f"pairs {st.affected_pairs}, items {st.items} of "
+                f"full_items {st.full_items} "
+                f"({st.items / st.full_items:.4%}), dispatches "
+                f"{st.chunks}, update wall {wall:.4f} s (host pair "
+                f"{st.host_pair_seconds:.4f} s, merge "
+                f"{st.host_merge_seconds:.4f} s, emit "
+                f"{st.host_emit_seconds:.4f} s), load_max_over_mean "
+                f"{s.load_max_over_mean:.4f}; equal to the from-scratch "
+                f"census")
+
+        t0 = time.perf_counter()
+        s1 = CensusEngine(devices=devices, backend="fused",
+                          partition=True).session(g, max_items=max_items)
+        open_s = time.perf_counter() - t0
+        wall = held("partitioned session census", s1, s1.census,
+                    census_none)
+        log(f"partitioned session 1d x4: opened in {open_s:.3f} s "
+            f"(chunk_shape {s1.chunk_shape} desc_shape {s1.desc_shape}, "
+            f"shard loads max/mean {s1.load_max_over_mean:.4f}), census "
+            f"windows {s1.stats.chunks} items {s1.stats.items} wall "
+            f"{wall:.3f} s; equal to the single-device census")
+        sess_ck = str(Path(tmp) / "session.ckpt")
+        s1.save_checkpoint(sess_ck)
+        for row, delta in list(zip(rows, deltas))[:2]:
+            wall = held(f"partitioned session update k={row['k']}", s1,
+                        lambda: s1.update(*delta), row["census"])
+            update_line("partitioned session 1d x4", s1, row["k"], wall)
+            log(f"partitioned session 1d x4 update k={row['k']}: "
+                f"single-device session update wall "
+                f"{row['wall_s']:.4f} s, from-scratch fused census wall "
+                f"{row['scratch_wall_s']:.3f} s")
+        s1.close()
+
+        t0 = time.perf_counter()
+        s2 = CensusEngine(devices=devices, backend="fused",
+                          partition_2d=(2, 2)).session(
+            g, max_items=max_items)
+        open_s = time.perf_counter() - t0
+        s2.load_checkpoint(sess_ck)
+        wall = held(f"2d session update k={rows[0]['k']}", s2,
+                    lambda: s2.update(*deltas[0]), rows[0]["census"])
+        log(f"partitioned session 2d (2, 2): opened in {open_s:.3f} s, "
+            f"census adopted from the 1d session's checkpoint")
+        update_line("partitioned session 2d (2, 2)", s2, rows[0]["k"],
+                    wall)
+        s2.close()
+
+        t0 = time.perf_counter()
+        s3 = CensusEngine(devices=devices[:2], backend="fused").session(
+            g, max_items=max_items)
+        open_s = time.perf_counter() - t0
+        census_wall = held("replicated session census", s3, s3.census,
+                           census_none)
+        wall = held(f"replicated session update k={rows[0]['k']}", s3,
+                    lambda: s3.update(*deltas[0]), rows[0]["census"])
+        st = s3.stats
+        log(f"replicated session x2: opened in {open_s:.3f} s, census "
+            f"wall {census_wall:.3f} s; update k={rows[0]['k']}: items "
+            f"{st.items} of full_items {st.full_items}, dispatches "
+            f"{st.chunks} (x2 lanes), update wall {wall:.4f} s; equal to "
+            f"the from-scratch census")
+        s3.close()
+    if cuda:
+        require(desc_launches > 0, "the sessions launched no desc kernel")
+    log(f"faults and multi-device sessions phase: megastep launches "
+        f"{batch_launches}, desc launches {desc_launches}")
+    return dict(batch_launches=batch_launches, desc_launches=desc_launches)
 
 
 def small_delta_stream(g, seed: int):
@@ -1606,6 +1851,15 @@ def main(argv=None) -> int:
                                runs[0]["census"], runs[1]["census"])
     records[0]["batch"]["launches"] = parted["batch_launches"]
     phase_done("partitioned", t_start)
+
+    # faults and the sessions of a multi-device engine: counts from 0
+    # just before each run and session call, inside the phase
+    faulted = faults_sessions_phase(g, device, max_items, part,
+                                    runs[0]["census"],
+                                    parted["async_wall_s"], session)
+    records[0]["batch"]["fault_phase_launches"] = faulted["batch_launches"]
+    records[0]["multidevice_session_launches"] = faulted["desc_launches"]
+    phase_done("faults and multi-device sessions", t_start)
 
     # the pair_codes entry point, on the kernel phase's tiles
     q, k, kc, want = codes_case

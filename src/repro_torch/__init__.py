@@ -31,6 +31,22 @@ Public API::
     CensusEngine(devices=default_devices(4), partition_2d=(2, 2),
                  schedule="lockstep").run(g, max_items=2**24)
 
+    # sessions of a multi-device engine: a partitioned session's update
+    # dispatches only the shards that own touched pairs
+    session = engine.session(g, max_items=2**24)  # PartitionedEngineSession
+    c0 = session.census()
+    c1 = session.update(add_src, add_dst, del_src, del_dst)
+
+    # fault tolerance: seeded faults, retries, failover to the surviving
+    # streams, and a checkpoint journal to resume a killed run from
+    plan = FaultPlan.seeded(0, 4, producer_errors=1, dispatch_errors=1,
+                            retire_devices=1, poisons=1)
+    engine = CensusEngine(devices=default_devices(4), partition=True,
+                          faults=plan)
+    census = engine.run(g, max_items=2**24, checkpoint="run.ckpt")
+    engine.stats.retries, engine.stats.failovers  # what recovery cost
+    census = engine.resume(g, "run.ckpt", max_items=2**24)  # after a kill
+
 Backends map one-to-one onto ``repro``'s:
 
 ============  ================  =========================================
@@ -59,7 +75,11 @@ from repro_torch.core.distributed import (
     triad_census_graph)
 from repro_torch.core.engine import (
     EMIT_MODES, MAX_WINDOWS_PER_DISPATCH, PIPELINE_DEPTH, SCHEDULES,
-    CensusEngine, EngineSession, EngineStats, LogicalDevice)
+    CensusEngine, EngineSession, EngineStats, LogicalDevice,
+    PartitionedEngineSession, PartitionedEngineSession2D)
+from repro_torch.core.faults import (
+    Fault, FaultError, FaultInjector, FaultPlan, InjectedFault,
+    poison_result)
 from repro_torch.core.generators import (
     PAPER_WORKLOADS, erdos_renyi_digraph, paper_workload,
     scale_free_digraph)
@@ -70,10 +90,11 @@ from repro_torch.core.pair_index import IndexCorruptionError, PairSpaceIndex
 from repro_torch.core.partition import (
     GraphPartition, GraphPartition2D, LocalShard, PartitionStats,
     extract_shard, lpt_assign, lpt_assign_heap, partition_graph,
-    partition_graph_2d, stacked_device_arrays, vertex_slices)
+    partition_graph_2d, replicated_graph_bytes, stacked_device_arrays,
+    vertex_slices)
 from repro_torch.core.plan_stream import (
-    PlanChunk, PlanChunker, ShardSchedule, ShardStreamPipeline,
-    WindowBatcher, iter_plan_chunks)
+    PlanChunk, PlanChunker, ProducerStalledError, ShardSchedule,
+    ShardStreamPipeline, WindowBatcher, iter_plan_chunks)
 from repro_torch.core.planner import (
     CensusPlan, DescriptorWindow, PairSpace, PlanOverflowError,
     base_for_pairs, build_plan, descriptor_window, emit_items,
@@ -92,7 +113,10 @@ __all__ = [
     "triad_census_graph",
     "EMIT_MODES", "MAX_WINDOWS_PER_DISPATCH", "PIPELINE_DEPTH",
     "SCHEDULES", "CensusEngine", "EngineSession", "EngineStats",
-    "LogicalDevice",
+    "LogicalDevice", "PartitionedEngineSession",
+    "PartitionedEngineSession2D",
+    "Fault", "FaultError", "FaultInjector", "FaultPlan", "InjectedFault",
+    "poison_result",
     "affected_pair_ids", "subset_contribution",
     "subset_descriptor_windows", "verify_delta_closure",
     "IndexCorruptionError", "PairSpaceIndex",
@@ -100,9 +124,10 @@ __all__ = [
     "scale_free_digraph",
     "GraphPartition", "GraphPartition2D", "LocalShard", "PartitionStats",
     "extract_shard", "lpt_assign", "lpt_assign_heap", "partition_graph",
-    "partition_graph_2d", "stacked_device_arrays", "vertex_slices",
-    "PlanChunk", "PlanChunker", "ShardSchedule", "ShardStreamPipeline",
-    "WindowBatcher", "iter_plan_chunks",
+    "partition_graph_2d", "replicated_graph_bytes",
+    "stacked_device_arrays", "vertex_slices",
+    "PlanChunk", "PlanChunker", "ProducerStalledError", "ShardSchedule",
+    "ShardStreamPipeline", "WindowBatcher", "iter_plan_chunks",
     "CensusPlan", "DescriptorWindow", "PairSpace", "PlanOverflowError",
     "base_for_pairs", "build_plan", "descriptor_window", "emit_items",
     "emit_items_for_pairs", "iter_descriptor_windows", "pack_items",

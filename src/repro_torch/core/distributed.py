@@ -72,12 +72,37 @@ def default_devices(k: int | None = None,
     return [LogicalDevice.on(i, cards[i % len(cards)]) for i in range(k)]
 
 
-def shard_report(part: GraphPartition | GraphPartition2D) -> str:
+def shard_report(part: GraphPartition | GraphPartition2D,
+                 stats=None) -> str:
     """Human-readable per-shard balance + residency table of a
     :func:`partition_graph` or :func:`partition_graph_2d` result (2D
     partitions label each row with its ``(pair_shard, vertex_slice)``
-    tile coordinate and add a resident-entry replication line)."""
-    return part.stats.report()
+    tile coordinate and add a resident-entry replication line).
+
+    Pass the run's :class:`~repro_torch.core.engine.EngineStats` as
+    ``stats`` to append a fault-tolerance section when anything went
+    wrong: retried windows, producer watchdog restarts, retired logical
+    devices whose queues failed over to the survivors, and
+    checkpoint-resumed windows.
+    """
+    text = part.stats.report()
+    if stats is None:
+        return text
+    fired = (stats.retries or stats.failovers or stats.watchdog_fires
+             or stats.retired_devices or stats.resumed_windows)
+    if not fired:
+        return text
+    lines = ["", "fault tolerance:"]
+    if stats.retired_devices:
+        lines.append(f"  retired devices : {sorted(stats.retired_devices)}"
+                     " (queues drained by survivors)")
+    lines.append(f"  retries         : {stats.retries}")
+    lines.append(f"  failovers       : {stats.failovers}")
+    lines.append(f"  watchdog fires  : {stats.watchdog_fires}")
+    if stats.resumed_windows:
+        lines.append(f"  resumed windows : {stats.resumed_windows}"
+                     " (skipped via checkpoint)")
+    return text + "\n".join(lines)
 
 
 def triad_census_distributed(plan: CensusPlan, devices=None,

@@ -56,6 +56,17 @@ stays resident on the device and :meth:`EngineSession.update` recounts
 only the pairs an edge delta touches (:mod:`repro_torch.core.incremental`),
 bit-identical to a from-scratch census of the edited graph.
 
+On several logical devices, :meth:`CensusEngine.session` opens a
+replicated :class:`EngineSession` or, partitioned, a
+:class:`PartitionedEngineSession` (2D: :class:`PartitionedEngineSession2D`)
+whose delta updates dispatch only the shards owning touched pairs.
+
+Fault tolerance (:mod:`repro_torch.core.faults`): async partitioned runs
+retry every dispatch, retire failing logical devices to the survivors,
+restart failed or stalled window producers and journal landed windows
+for :meth:`CensusEngine.resume`; sessions retry on their own devices.
+Only injected faults and partials that fail validation are retried.
+
 Host phases are marked as ``torch.profiler`` ranges, read from a trace of
 a run (``chip_smoke.py`` does): ``census.plan`` (pair space, bases and
 window shapes), ``census.partition`` (a partitioned run's pair space, LPT
@@ -65,7 +76,10 @@ item words).  Outside a profiler a range costs a few microseconds.
 
 from __future__ import annotations
 
+import json
+import os
 import time
+import zlib
 from collections import deque
 from dataclasses import dataclass, field
 
@@ -77,13 +91,15 @@ from repro_torch.core.census import (
     BACKENDS, assemble_census, assemble_counts, desc_batch_partials_fn,
     desc_partials_fn, partials_fn)
 from repro_torch.core.digraph import CompactDigraph, GraphDelta, apply_delta
+from repro_torch.core.faults import FaultError, FaultPlan, poison_result
 from repro_torch.core.incremental import (
     affected_pair_ids, combine, contribution_counts,
     subset_descriptor_windows)
 from repro_torch.core.pair_index import PairSpaceIndex
 from repro_torch.core.partition import (
-    graph_bytes, partition_graph, partition_graph_2d,
-    replicated_graph_bytes, stacked_device_arrays)
+    extract_shard, graph_bytes, partition_graph, partition_graph_2d,
+    range_postprune_pair_counts, replicated_graph_bytes, slice_pair_terms,
+    stacked_device_arrays)
 from repro_torch.core.plan_stream import (
     PlanChunker, ShardSchedule, ShardStreamPipeline, WindowBatcher)
 from repro_torch.core.planner import (
@@ -91,7 +107,7 @@ from repro_torch.core.planner import (
     PlanOverflowError, base_for_pairs, build_plan, emit_items,
     emit_items_for_pairs, global_bases, iter_descriptor_windows,
     max_pairs_per_window, num_desc_anchors, pad_and_pack, pair_space,
-    split_device_words)
+    postprune_pair_counts, split_device_words)
 
 #: work-item emission modes: ``device`` streams O(pairs) descriptors and
 #: expands pairs→items on the device (the default); ``host`` materializes
@@ -215,11 +231,21 @@ def _guard_chunk_shape(chunk_shape: int) -> int:
     return chunk_shape
 
 
+def _validate_partials(hist, inter) -> None:
+    """Landing-time sanity check on fetched device partials: census
+    histogram and intersection lanes are counts and can never go
+    negative.  A corrupted (poisoned) result fails here, turning silent
+    wrong answers into a retryable :class:`FaultError`."""
+    if (hist < 0).any() or (inter < 0).any():
+        raise FaultError(
+            "device returned corrupted census partials (negative "
+            "counts); retrying the window")
+
+
 @dataclass
 class EngineStats:
     """Execution stats of the last :class:`CensusEngine` run, field for
-    field as the JAX package's ``EngineStats`` (its fault-tolerance
-    fields excepted).
+    field as the JAX package's ``EngineStats``.
 
     ``peak_plan_bytes`` is the per-dispatch item-lane footprint at
     packed-item width (``ITEM_BYTES * chunk_shape``, all devices);
@@ -300,6 +326,17 @@ class EngineStats:
     #: the megabatch cap K in effect (1 == no window batching, 0 == not
     #: a partitioned run)
     dispatch_batch_limit: int = 0
+    #: fault-tolerance record: window dispatches re-attempted after a
+    #: transient failure (injected, or partials that failed validation),
+    #: logical devices retired to the survivors, watchdog-restarted
+    #: producers, and the retired device ids — all zero/empty on a
+    #: fault-free run
+    retries: int = 0
+    failovers: int = 0
+    watchdog_fires: int = 0
+    retired_devices: list = field(default_factory=list)
+    #: windows restored from a checkpoint journal instead of re-executed
+    resumed_windows: int = 0
     #: session host walltime by phase: pair-space maintenance (rebuild,
     #: or index edit + affected-pair discovery when ``indexed``), the
     #: ``apply_delta`` CSR edit, and work emission (items or descriptor
@@ -358,6 +395,13 @@ class EngineStats:
                          f"(cap {self.dispatch_batch_limit})")
             else:
                 part += f" idle_steps={self.idle_steps}"
+        if (self.retries or self.failovers or self.watchdog_fires
+                or self.resumed_windows):
+            part += (f" faults[retries={self.retries} "
+                     f"failovers={self.failovers} "
+                     f"retired={self.retired_devices} "
+                     f"watchdog_fires={self.watchdog_fires} "
+                     f"resumed={self.resumed_windows}]")
         if self.plan_host_seconds:
             part += (f" host[pair={self.host_pair_seconds * 1e3:.2f}ms"
                      f" merge={self.host_merge_seconds * 1e3:.2f}ms"
@@ -373,6 +417,105 @@ class EngineStats:
                 f"step_compiles={self.step_compiles}" + part)
 
 
+class _CheckpointJournal:
+    """JSONL window journal for ``CensusEngine.run(checkpoint=)``, in the
+    JAX package's format.
+
+    Line 0 is the run fingerprint (graph + schedule identity); every
+    further line records one landed dispatch: the shard, the explicit
+    window ids it covered, the dispatch's summed int64 partials, and
+    the per-window valid item counts.  Landings are flushed
+    line-by-line, so a run killed mid-stream leaves a valid prefix.
+
+    Resume correctness rests on the property the async machinery already
+    proved: the host merge is an integer sum over independent windows,
+    so restoring the journaled partials and *skipping exactly the
+    journaled window ids* reproduces the uninterrupted census
+    bit-identically — regardless of the order landings happened to
+    reach the journal (retried windows can land out of per-shard
+    order, hence explicit ids instead of prefix counts).
+    """
+
+    VERSION = 1
+
+    def __init__(self, path: str, fingerprint: dict, ndev: int):
+        self.path = path
+        self.fingerprint = fingerprint
+        #: per-shard set of yielded-window ids already landed
+        self.done: list = [set() for _ in range(ndev)]
+        self.hist = np.zeros(64, np.int64)
+        self.inter = np.zeros(2, np.int64)
+        self.chunk_items: list = []
+        self.shard_items = [0] * ndev
+        self.windows = 0
+        self._f = None
+        if os.path.exists(path):
+            self._load(ndev)
+        self._f = open(path, "a" if self.windows or self._header_ok
+                       else "w")
+        if not self._header_ok:
+            self._f.write(json.dumps({"v": self.VERSION,
+                                      **fingerprint}) + "\n")
+            self._f.flush()
+
+    _header_ok = False
+
+    @staticmethod
+    def graph_fingerprint(space, *, emit: str, ndev: int,
+                          max_items) -> dict:
+        return {
+            "n": int(space.n), "pairs": int(space.num_pairs),
+            "preprune": int(space.num_items_preprune),
+            "packed_crc": int(zlib.crc32(
+                np.ascontiguousarray(space.packed).tobytes())),
+            "orient": space.orient, "prune_self": bool(space.prune_self),
+            "emit": emit, "ndev": int(ndev),
+            "max_items": None if max_items is None else int(max_items),
+        }
+
+    def _load(self, ndev: int) -> None:
+        with open(self.path) as f:
+            lines = [ln for ln in f.read().splitlines() if ln.strip()]
+        if not lines:
+            return
+        head = json.loads(lines[0])
+        want = {"v": self.VERSION, **self.fingerprint}
+        if head != want:
+            raise FaultError(
+                f"checkpoint {self.path!r} was written by a different "
+                f"run (header {head} != {want}); delete it or pass a "
+                f"fresh path")
+        self._header_ok = True
+        for ln in lines[1:]:
+            try:
+                rec = json.loads(ln)
+            except json.JSONDecodeError:
+                break                      # torn final line from a kill
+            s = int(rec["s"])
+            ids = {int(x) for x in rec["ids"]}
+            if ids & self.done[s]:
+                continue                   # duplicate landing — ignore
+            self.done[s] |= ids
+            self.hist += np.asarray(rec["hist"], dtype=np.int64)
+            self.inter += np.asarray(rec["inter"], dtype=np.int64)
+            self.chunk_items.extend(int(x) for x in rec["items"])
+            self.shard_items[s] += int(sum(rec["items"]))
+            self.windows += len(ids)
+
+    def record(self, s: int, ids, hist, inter, items) -> None:
+        self._f.write(json.dumps({
+            "s": int(s), "ids": [int(x) for x in ids],
+            "hist": [int(x) for x in hist],
+            "inter": [int(x) for x in inter],
+            "items": [int(x) for x in items]}) + "\n")
+        self._f.flush()
+
+    def close(self) -> None:
+        if self._f is not None:
+            self._f.close()
+            self._f = None
+
+
 class _Pipeline:
     """Double-buffered host↔device traffic of one stream of dispatches.
 
@@ -385,9 +528,10 @@ class _Pipeline:
     only after its copy has completed.  Each dispatch's partials
     (``rows`` windows of them: K for a megastep) come back by a
     non-blocking copy into a pinned buffer from a ring of ``ring``,
-    waited on by an event only when they are landed, so the ring must
-    exceed the dispatches in flight.  On the CPU everything is
-    synchronous.
+    waited on by an event only when they are landed; a slot is taken by
+    a launch (never by an attempt that failed before it) and freed when
+    its dispatch lands, so the ring must exceed the dispatches in
+    flight.  On the CPU everything is synchronous.
     """
 
     def __init__(self, device: torch.device, shape, *, stream=None,
@@ -409,13 +553,23 @@ class _Pipeline:
         self.host_out = [torch.empty(rows * _OUT_WORDS, dtype=torch.int32,
                                      pin_memory=True) for _ in range(ring)]
         self.done: list = [None] * ring
+        self.busy = [False] * ring
         self.count = 0
+        self.launched = 0
 
-    def submit(self, words: np.ndarray, launch):
+    def submit(self, words: np.ndarray, launch, fire=None):
         """Ship host buffer ``words``, enqueue ``launch(device_words) ->
         (hist, inter)`` on the compute stream and start bringing its
-        partials back; returns a ticket for :meth:`land`."""
+        partials back; returns a ticket for :meth:`land`.  ``fire(site)``
+        (a fault injector's hook) is called with ``"upload"`` before the
+        copy and ``"dispatch"`` before the launch; when it raises, the
+        attempt ends there and its buffers are reused only after their
+        events, as for any dispatch."""
+        if fire is not None:
+            fire("upload")
         if not self.cuda:
+            if fire is not None:
+                fire("dispatch")
             return launch(torch.from_numpy(words))
         k = self.count
         self.count += 1
@@ -430,7 +584,9 @@ class _Pipeline:
             self.dev_in[slot].copy_(self.host_in[slot], non_blocking=True)
             copied.record(self.copy_stream)
         self.copied[slot] = copied
-        r = k % len(self.host_out)
+        if fire is not None:
+            fire("dispatch")
+        r = self._take_slot()
         out = self.host_out[r]
         with torch.cuda.stream(self.stream):
             self.stream.wait_event(copied)
@@ -448,6 +604,17 @@ class _Pipeline:
         self.done[r] = done
         return r, lanes
 
+    def _take_slot(self) -> int:
+        """The next free slot of the partials ring, marked busy."""
+        ring = len(self.host_out)
+        for i in range(ring):
+            r = (self.launched + i) % ring
+            if not self.busy[r]:
+                self.launched = r + 1
+                self.busy[r] = True
+                return r
+        raise RuntimeError(f"all {ring} partials buffers are in flight")
+
     def land(self, ticket) -> tuple[np.ndarray, np.ndarray]:
         """Wait for a submitted dispatch; its partials as int64 arrays,
         ``(rows, 64)`` and ``(rows, lanes)``."""
@@ -457,13 +624,14 @@ class _Pipeline:
                     inter.reshape(self.rows, -1).numpy().astype(np.int64))
         r, lanes = ticket
         self.done[r].synchronize()
+        self.busy[r] = False
         out = self.host_out[r].numpy().astype(np.int64)
         n = self.rows * 64
         return (out[:n].reshape(self.rows, 64),
                 out[n:n + self.rows * lanes].reshape(self.rows, lanes))
 
 
-def _dispatch(pipes, launches, steps, landed=None
+def _dispatch(pipes, launches, steps, landed=None, session=None
               ) -> tuple[np.ndarray, np.ndarray]:
     """Run each step that ``steps`` yields — one int32 host buffer per
     pipe — as one dispatch on every pipe, ``launches[d](device_words) ->
@@ -472,31 +640,59 @@ def _dispatch(pipes, launches, steps, landed=None
     dispatch has (the step's barrier), its partials summed in int64.
     Every dispatch has landed when it returns.
 
+    With a ``session``, each step fires the session's fault injector
+    (as shard 0 on device 0, before the first pipe's copy and launch),
+    is retried under the engine's budget, and its summed partials are
+    validated as they land (:func:`_land_retrying_session`).
+
     ``landed(k, inter)`` is called with each step's summed int64 ``inter``
     lanes as it lands, in order.  Returns the int64 sums of ``hist`` and
     of ``inter``'s two census lanes."""
     hist_acc = np.zeros(64, np.int64)
     inter_acc = np.zeros(2, np.int64)
-    pending = None
+    inj = None if session is None else session._injector
+    fire = (None if inj is None else
+            lambda site: inj.fire(site, shard=0, device=0))
 
-    def land(k, tickets):
+    def submit(buffers):
+        tickets = [pipe.submit(words, launch, fire if d == 0 else None)
+                   for d, (pipe, launch, words) in enumerate(
+                       zip(pipes, launches, buffers))]
+        return tickets, (inj.take_poison() if inj is not None else False)
+
+    def fetch(tickets):
         hist = np.zeros(64, np.int64)
         inter = None
         for pipe, ticket in zip(pipes, tickets):
             h, i = pipe.land(ticket)
             hist += h[0]
             inter = i[0] if inter is None else inter + i[0]
+        return hist, inter
+
+    def dispatch(buffers):
+        if session is None:
+            return submit(buffers)
+        return _dispatch_retrying_session(session, lambda: submit(buffers))
+
+    def land(k, job):
+        (tickets, poisoned), buffers = job
+        if session is None:
+            hist, inter = fetch(tickets)
+        else:
+            hist, inter = _land_retrying_session(
+                session, fetch, tickets, poisoned,
+                lambda: dispatch(buffers))
         hist_acc[:] += hist
         inter_acc[:] += inter[:2]
         if landed is not None:
             landed(k, inter)
 
+    pending = None
     for k, buffers in enumerate(steps):
-        tickets = [pipe.submit(words, launch) for pipe, launch, words
-                   in zip(pipes, launches, buffers)]
+        job = (dispatch(buffers), buffers)
         if pending is not None:
             land(k - 1, pending)
-        pending = tickets
+        pending = job
     if pending is not None:
         land(k, pending)
     return hist_acc, inter_acc
@@ -542,6 +738,15 @@ class CensusEngine:
     ``max_windows_per_dispatch`` descriptor windows per megastep launch.
     After each :meth:`run` / :meth:`run_plan` the execution record is
     :attr:`stats`.
+
+    Fault tolerance (the JAX package's knobs and defaults): every async
+    partitioned dispatch, and every session dispatch, is retried up to
+    ``max_retries`` times with exponential ``retry_backoff`` sleeps;
+    ``watchdog_timeout`` (seconds, None == off) restarts stalled window
+    producers; ``faults`` is an optional
+    :class:`repro_torch.core.faults.FaultPlan` to inject against.  Only
+    injected faults and partials that fail validation are retried: a
+    CUDA error surfaces as it is.
     """
 
     def __init__(self, device=None, backend: str = "fused",
@@ -550,7 +755,10 @@ class CensusEngine:
                  partition_2d: tuple | None = None,
                  schedule: str = "async",
                  pipeline_depth: int = PIPELINE_DEPTH,
-                 max_windows_per_dispatch: int = MAX_WINDOWS_PER_DISPATCH):
+                 max_windows_per_dispatch: int = MAX_WINDOWS_PER_DISPATCH,
+                 max_retries: int = 2, retry_backoff: float = 0.01,
+                 watchdog_timeout: float | None = None,
+                 faults: FaultPlan | None = None):
         if backend not in BACKENDS:
             raise ValueError(
                 f"unknown backend {backend!r}; one of {BACKENDS}")
@@ -577,6 +785,15 @@ class CensusEngine:
             raise ValueError(
                 "max_windows_per_dispatch must be >= 1, got "
                 f"{max_windows_per_dispatch}")
+        if max_retries < 0:
+            raise ValueError(
+                f"max_retries must be >= 0, got {max_retries}")
+        if retry_backoff < 0:
+            raise ValueError(
+                f"retry_backoff must be >= 0, got {retry_backoff}")
+        if watchdog_timeout is not None and watchdog_timeout <= 0:
+            raise ValueError(
+                f"watchdog_timeout must be > 0, got {watchdog_timeout}")
         self.devices = None if devices is None else resolve_devices(devices)
         if (partition_2d is not None
                 and partition_2d[0] * partition_2d[1] != self.ndev):
@@ -595,6 +812,15 @@ class CensusEngine:
         self.schedule = schedule
         self.pipeline_depth = int(pipeline_depth)
         self.max_windows_per_dispatch = int(max_windows_per_dispatch)
+        #: fault-tolerance knobs: per-window re-dispatch budget with
+        #: exponential ``retry_backoff`` sleeps, producer-stall watchdog
+        #: (None == off), and an optional deterministic
+        #: :class:`repro_torch.core.faults.FaultPlan` to inject against
+        self.max_retries = int(max_retries)
+        self.retry_backoff = float(retry_backoff)
+        self.watchdog_timeout = (None if watchdog_timeout is None
+                                 else float(watchdog_timeout))
+        self.faults = faults
         self.stats: EngineStats | None = None
 
     @property
@@ -695,7 +921,8 @@ class CensusEngine:
     def run(self, g: CompactDigraph, *, max_items: int | None = None,
             orient: str = "none", prune_self: bool = True,
             progress=None, emit: str | None = None,
-            schedule: str | None = None, part=None) -> np.ndarray:
+            schedule: str | None = None, part=None,
+            checkpoint: str | None = None) -> np.ndarray:
         """Plan + count ``g`` end to end.
 
         ``max_items=None`` covers the whole item space in one dispatch;
@@ -710,6 +937,12 @@ class CensusEngine:
         :class:`repro_torch.core.partition.GraphPartition` (or
         ``GraphPartition2D``) of ``len(devices)`` shards, overriding the
         internal LPT (``orient``/``prune_self`` are then its space's).
+
+        ``checkpoint`` (partitioned async runs only) journals every
+        landed window to the given JSONL path; a later ``run`` (or
+        :meth:`resume`) against an existing journal restores the
+        journaled partials, skips the completed windows, and reproduces
+        the uninterrupted census bit-identically.
         """
         emit = self.emit if emit is None else emit
         if emit not in EMIT_MODES:
@@ -722,12 +955,18 @@ class CensusEngine:
         if part is not None and not self.partition:
             raise ValueError(
                 "a prebuilt partition requires partition=True")
+        if checkpoint is not None and not (
+                self.partition and schedule == "async"):
+            raise ValueError(
+                "checkpoint/resume is supported on partitioned async "
+                "runs (partition=True, schedule='async')")
         if self.partition:
             return self._run_partitioned(g, max_items=max_items,
                                          orient=orient,
                                          prune_self=prune_self,
                                          progress=progress, emit=emit,
-                                         schedule=schedule, part=part)
+                                         schedule=schedule, part=part,
+                                         checkpoint=checkpoint)
         with record_function("census.plan"):
             if emit == "host" and max_items is None:
                 plan = build_plan(g, pad_to=self.ndev, orient=orient,
@@ -743,6 +982,92 @@ class CensusEngine:
             return self.run_plan(plan)
         return self._run_stream(chunker, progress)
 
+    def resume(self, g: CompactDigraph, checkpoint: str,
+               **kwargs) -> np.ndarray:
+        """Resume a checkpointed partitioned async run: requires the
+        journal to exist (use :meth:`run` with ``checkpoint=`` to start
+        one), restores its landed windows, and completes the rest —
+        bit-identical to the uninterrupted run."""
+        if not os.path.exists(checkpoint):
+            raise FileNotFoundError(
+                f"no checkpoint journal at {checkpoint!r}; start the "
+                f"run with run(..., checkpoint=path) first")
+        return self.run(g, checkpoint=checkpoint, **kwargs)
+
+    @staticmethod
+    def compact_checkpoint(checkpoint: str) -> dict:
+        """Fold an append-only checkpoint journal into its minimal form.
+
+        A long checkpointed run appends one JSONL record per landed
+        dispatch, so the journal grows with the window count even though
+        resume only needs the *sums*.  Compaction rewrites the file as
+        the fingerprint header plus ONE merged record per shard (summed
+        partials, unioned window ids, concatenated per-window item
+        counts) — the landing merge is an integer sum over independent
+        windows, so :meth:`resume` restores the compacted journal to the
+        exact state the full journal would have produced, and keeps
+        appending new landings after it (``_load`` is additive per
+        record; both forms read identically).
+
+        Duplicate landings and a torn final line are dropped the same
+        way loading drops them.  The rewrite is atomic (temp file +
+        ``os.replace``), so a kill mid-compaction leaves the original
+        journal intact.  Returns ``{"records", "compacted", "bytes",
+        "compacted_bytes"}``.
+        """
+        if not os.path.exists(checkpoint):
+            raise FileNotFoundError(
+                f"no checkpoint journal at {checkpoint!r}")
+        old_bytes = os.path.getsize(checkpoint)
+        with open(checkpoint) as f:
+            lines = [ln for ln in f.read().splitlines() if ln.strip()]
+        if not lines:
+            raise FaultError(
+                f"checkpoint {checkpoint!r} is empty — nothing to "
+                f"compact")
+        head = json.loads(lines[0])
+        if head.get("v") != _CheckpointJournal.VERSION:
+            raise FaultError(
+                f"checkpoint {checkpoint!r} has unknown version "
+                f"{head.get('v')!r}")
+        # replay the records exactly the way _load does (skip duplicate
+        # landings and the torn tail), but keep the sums per shard
+        merged: dict = {}
+        records = 0
+        for ln in lines[1:]:
+            try:
+                rec = json.loads(ln)
+            except json.JSONDecodeError:
+                break
+            records += 1
+            s = int(rec["s"])
+            m = merged.setdefault(s, {
+                "ids": set(), "hist": np.zeros(64, np.int64),
+                "inter": np.zeros(2, np.int64), "items": []})
+            ids = {int(x) for x in rec["ids"]}
+            if ids & m["ids"]:
+                continue
+            m["ids"] |= ids
+            m["hist"] += np.asarray(rec["hist"], dtype=np.int64)
+            m["inter"] += np.asarray(rec["inter"], dtype=np.int64)
+            m["items"].extend(int(x) for x in rec["items"])
+        tmp = checkpoint + ".compact.tmp"
+        with open(tmp, "w") as f:
+            f.write(json.dumps(head) + "\n")
+            for s in sorted(merged):
+                m = merged[s]
+                f.write(json.dumps({
+                    "s": s, "ids": sorted(m["ids"]),
+                    "hist": [int(x) for x in m["hist"]],
+                    "inter": [int(x) for x in m["inter"]],
+                    "items": m["items"]}) + "\n")
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, checkpoint)
+        return {"records": records, "compacted": len(merged),
+                "bytes": old_bytes,
+                "compacted_bytes": os.path.getsize(checkpoint)}
+
     def session(self, g: CompactDigraph, *, orient: str = "none",
                 prune_self: bool = True, max_items: int | None = None,
                 emit: str | None = None,
@@ -754,13 +1079,29 @@ class CensusEngine:
         so warm ``update()`` calls edit the pair space in O(delta · log P)
         instead of rebuilding it in O(P); ``index=False`` is the
         rebuild-from-scratch oracle path (bit-identical either way).
-        Sessions run on one device: partitioned sessions (and with them
-        ``auto_rebalance_threshold``) are not ported yet, and a session
-        of an engine on several devices raises."""
-        if self.partition or self.ndev > 1:
-            raise ValueError(
-                "sessions run on one device; partitioned and multi-device "
-                "sessions are not ported yet")
+
+        A partitioned engine opens a :class:`PartitionedEngineSession`
+        (a 2D one a :class:`PartitionedEngineSession2D`), whose delta
+        updates dispatch only the shards owning touched pairs;
+        ``auto_rebalance_threshold`` (partitioned only) re-shards it with
+        a fresh LPT whenever churn pushes the load ``max/mean`` past it
+        (see :meth:`PartitionedEngineSession.rebalance`).  An engine on
+        several devices without ``partition`` opens a replicated
+        :class:`EngineSession`: every device holds the graph and each
+        dispatch's lanes are split across them."""
+        if self.partition:
+            if self.partition_2d is not None:
+                return PartitionedEngineSession2D(
+                    self, g, mesh_shape=self.partition_2d,
+                    orient=orient, prune_self=prune_self,
+                    max_items=max_items, emit=emit,
+                    auto_rebalance_threshold=auto_rebalance_threshold,
+                    index=index)
+            return PartitionedEngineSession(
+                self, g, orient=orient, prune_self=prune_self,
+                max_items=max_items, emit=emit,
+                auto_rebalance_threshold=auto_rebalance_threshold,
+                index=index)
         if auto_rebalance_threshold is not None:
             raise ValueError(
                 "auto_rebalance_threshold requires partition=True")
@@ -899,7 +1240,8 @@ class CensusEngine:
     def _run_partitioned(self, g: CompactDigraph, *,
                          max_items: int | None, orient: str,
                          prune_self: bool, progress, emit: str,
-                         schedule: str, part=None) -> np.ndarray:
+                         schedule: str, part=None,
+                         checkpoint: str | None = None) -> np.ndarray:
         """Partitioned plan + count: LPT-shard the pair space (or take a
         prebuilt ``part``), extract one local subgraph per device, and
         walk every device's private window queue
@@ -941,18 +1283,18 @@ class CensusEngine:
                   else ITEM_BYTES * sched.chunk_shape)
         if schedule == "async":
             census = self._run_partitioned_async(part, sched, progress,
-                                                 emit, max_items, upload)
+                                                 emit, max_items, upload,
+                                                 checkpoint=checkpoint)
         else:
             census = self._run_partitioned_lockstep(part, sched, progress,
                                                     emit, max_items, upload)
         self.stats.host_partition_seconds = partition_s
         return census
 
-    def _shard_graphs(self, part) -> list[tuple[torch.Tensor, ...]]:
-        """Each shard's padded local arrays (:func:`stacked_device_arrays`
-        rows: common lengths, as the reference ships them) committed to
-        its logical device."""
-        arrs = stacked_device_arrays(part.shards)
+    def _shard_graphs(self, arrs) -> list[tuple[torch.Tensor, ...]]:
+        """Each shard's padded local arrays (``arrs``: the
+        :func:`stacked_device_arrays` of its partition — common lengths,
+        as the reference ships them) committed to its logical device."""
         graphs = [self._upload_graph([a[s] for a in arrs], ld.device)
                   for s, ld in enumerate(self.devices)]
         _after_uploads(self.devices)
@@ -1002,7 +1344,7 @@ class CensusEngine:
                                    np.zeros(64, np.int64),
                                    np.zeros(2, np.int64))
         lanes = self.devices
-        graphs = self._shard_graphs(part)
+        graphs = self._shard_graphs(stacked_device_arrays(part.shards))
         chunk_items: list[int] = []
         cs = sched.chunk_shape
         if emit == "device":
@@ -1059,7 +1401,9 @@ class CensusEngine:
     def _run_partitioned_async(self, part, sched: ShardSchedule,
                                progress, emit: str,
                                max_items: int | None,
-                               upload: int) -> np.ndarray:
+                               upload: int,
+                               checkpoint: str | None = None
+                               ) -> np.ndarray:
         """Async per-shard streams: every device drains its PRIVATE
         window queue with no inter-shard barrier.
 
@@ -1069,8 +1413,8 @@ class CensusEngine:
         zero-window shards get no producer and no rotation slot.  This
         thread does every upload and launch: each window (or megabatch)
         goes through its shard's double-buffered pinned pipeline onto the
-        shard's device stream, with a bounded in-flight deque of
-        ``2 * ndev`` dispatches.
+        stream of the logical device serving the shard, with a bounded
+        in-flight deque of ``2 * ndev`` dispatches.
 
         Under ``emit="device"`` each dispatch is a **megastep**: the
         producer coalesces up to K descriptor windows into one
@@ -1082,6 +1426,24 @@ class CensusEngine:
 
         Partials land on the host in int64, in any order — integer
         sums, so the landing order cannot change a bit.
+
+        **Fault tolerance** rides on the same property: windows are
+        independent and the merge is order-invariant, so any window can
+        be re-dispatched or re-routed to a surviving logical device
+        without changing a census bit.  Every dispatch is retried up to
+        ``max_retries`` times with exponential backoff after an injected
+        fault or partials that fail validation (poisoned rows, widened
+        to int64, are checked on their first ``x`` rows); a device that
+        exhausts the budget (or hits a persistent injected fault) is
+        retired — its stream gets no further launch — and each shard it
+        served moves to a survivor's stream, reusing the shard's resident
+        tensors on the same card (re-uploaded from the host copies on
+        another), ordered after their upload by event.  Failover routes
+        among the engine's logical devices only.  Stalled producers are
+        restarted by the pipeline watchdog, failed ones from their skip
+        count, and ``checkpoint=`` journals every landed window so a
+        killed run resumes to the same census.  A CUDA error is never
+        retried: it surfaces as it is.
         """
         space = part.space
         ndev = self.ndev
@@ -1113,8 +1475,22 @@ class CensusEngine:
             return assemble_counts(space.n, base_asym, base_mut,
                                    np.zeros(64, np.int64),
                                    np.zeros(2, np.int64))
+        st = self.stats
+        injector = (self.faults.injector()
+                    if self.faults is not None else None)
+        journal = None
+        done = None
+        if checkpoint is not None:
+            fp = _CheckpointJournal.graph_fingerprint(
+                space, emit=emit, ndev=ndev, max_items=max_items)
+            journal = _CheckpointJournal(checkpoint, fp, ndev)
+            done = journal.done
         lanes = self.devices
-        graphs = self._shard_graphs(part)
+        # the host copies in ``arrs`` stay alive as the source of a
+        # failover onto another physical device
+        arrs = stacked_device_arrays(part.shards)
+        graphs = {(s, lanes[s].device): g
+                  for s, g in enumerate(self._shard_graphs(arrs))}
         cs = sched.chunk_shape
         batcher = None
         if emit == "device":
@@ -1125,87 +1501,239 @@ class CensusEngine:
             words_len = 1 + 3 * sched.desc_shape + sched.num_anchors
             batcher = WindowBatcher(cap, words_len)
             shape, rows = (cap, words_len), cap
+            # remaining window ids per shard in yield order: the consumer
+            # recovers each pulled window's id (FIFO queues keep producer
+            # order) for the checkpoint journal
+            order = [[k for k in range(sched.steps_for(s))
+                      if done is None or k not in done[s]]
+                     for s in range(ndev)]
+            live = [s for s in range(ndev) if order[s]]
 
-            def launcher(s):
-                graph, ix = graphs[s], idx[lanes[s].device]
+            def launcher(graph, device):
+                ix = idx[device]
                 return lambda words: step(*graph, words, ix)
 
-            def make_source(s):
-                for k in range(sched.steps_for(s)):
-                    yield sched.descriptors(s, k).device_words()
+            def make_source(s, skip=0):
+                def gen():
+                    for j, k in enumerate(order[s]):
+                        if j < skip:
+                            continue
+                        if injector is not None:
+                            injector.fire("producer", shard=s)
+                        yield sched.descriptors(s, k).device_words()
+                return gen()
         else:
             step = partials_fn(self.backend, space.search_iters)
             shape, rows = (2 * cs,), 1
+            order = None
+            live = [s for s in range(ndev) if sched.steps_for(s) > 0]
 
-            def launcher(s):
-                return _item_launcher(step, graphs[s], cs)
+            def launcher(graph, device):
+                return _item_launcher(step, graph, cs)
 
-            def make_source(s):
-                for k in range(sched.steps_for(s)):
-                    sp, pv, num = sched.shard_step_items(s, k)
-                    if num == 0:
-                        # fully-pruned window: zero contribution by
-                        # construction — never dispatched
-                        continue
-                    yield np.concatenate([sp, pv]), num
+            def make_source(s, skip=0):
+                def gen():
+                    emitted = 0
+                    for k in range(sched.steps_for(s)):
+                        if done is not None and k in done[s]:
+                            continue
+                        sp, pv, num = sched.shard_step_items(s, k)
+                        if num == 0:
+                            # fully-pruned window: zero contribution by
+                            # construction — never dispatched
+                            continue
+                        emitted += 1
+                        if emitted <= skip:
+                            continue
+                        if injector is not None:
+                            injector.fire("producer", shard=s)
+                        yield k, np.concatenate([sp, pv]), num
+                return gen()
 
-        # a shard with no window gets no producer and no rotation slot
-        live = [s for s in range(ndev) if sched.steps_for(s) > 0]
         limit = 2 * ndev
-        pipes = {s: _Pipeline(lanes[s].device, shape,
-                              stream=lanes[s].stream, rows=rows,
-                              ring=limit + 2) for s in live}
-        launches = {s: launcher(s) for s in live}
+        #: shard -> logical device serving it (failover re-routes)
+        home = list(range(ndev))
+        retired: set = set()
+        #: (shard, logical device) -> (pipeline, launch)
+        routes: dict = {}
+
+        def route(s: int):
+            """Shard ``s``'s pipeline and launch on the logical device
+            now serving it, made at its first use there."""
+            d = home[s]
+            if (s, d) not in routes:
+                ld = lanes[d]
+                key = (s, ld.device)
+                if key not in graphs:
+                    graphs[key] = self._upload_graph([a[s] for a in arrs],
+                                                     ld.device)
+                    _after_uploads([ld])
+                routes[(s, d)] = (
+                    _Pipeline(ld.device, shape, stream=ld.stream,
+                              rows=rows, ring=limit + 2),
+                    launcher(graphs[key], ld.device))
+            return routes[(s, d)]
+
         hist_acc = np.zeros(64, np.int64)
         inter_acc = np.zeros(2, np.int64)
         chunk_items: list[int] = []
+        if journal is not None and journal.windows:
+            np.add(hist_acc, journal.hist, out=hist_acc)
+            np.add(inter_acc, journal.inter, out=inter_acc)
+            chunk_items.extend(journal.chunk_items)
+            st.resumed_windows = journal.windows
         shard_steps = [0] * ndev
+        pos = [0] * ndev
         dispatches = win_max = pad_windows = 0
+        landed = [st.resumed_windows]
+
+        def retire(d_id: int, cause) -> None:
+            """Fail logical device ``d_id`` over to the survivors: every
+            shard it served moves to a surviving device, whose stream
+            takes the rest of its queue.  The merge is untouched, so the
+            census stays bit-identical."""
+            if d_id in retired:
+                return
+            retired.add(d_id)
+            survivors = [x for x in range(ndev) if x not in retired]
+            if not survivors:
+                raise FaultError(
+                    "every device has been retired; cannot complete "
+                    "the census") from cause
+            st.failovers += 1
+            st.retired_devices.append(d_id)
+            for s2 in range(ndev):
+                if home[s2] == d_id:
+                    home[s2] = survivors[s2 % len(survivors)]
+
+        def do_dispatch(s: int, window):
+            """One dispatch attempt of ``window`` on the device serving
+            shard ``s``; returns ((pipeline, ticket), poisoned)."""
+            d_id = home[s]
+            pipe, launch = route(s)
+            fire = (None if injector is None else
+                    lambda site: injector.fire(site, shard=s, device=d_id))
+            words = window[0] if emit == "device" else window[1]
+            ticket = pipe.submit(words, launch, fire)
+            poisoned = (injector.take_poison()
+                        if injector is not None else False)
+            return (pipe, ticket), poisoned
+
+        def dispatch_retrying(s: int, window, attempts: int = 0):
+            """Dispatch with the retry/failover discipline: a transient
+            fault backs off and retries on the same device up to
+            ``max_retries``; a dead device (persistent fault) or an
+            exhausted budget retires the device and re-routes."""
+            while True:
+                d_id = home[s]
+                try:
+                    fut, poisoned = do_dispatch(s, window)
+                    return fut, poisoned, attempts
+                except FaultError as exc:
+                    dead = ((injector is not None
+                             and injector.device_is_dead(d_id))
+                            or getattr(getattr(exc, "fault", None),
+                                       "persistent", False))
+                    if dead:
+                        retire(d_id, exc)
+                        attempts = 0
+                        continue
+                    attempts += 1
+                    st.retries += 1
+                    if attempts > self.max_retries:
+                        # budget exhausted: treat the device as failed
+                        # and drain its queue on the survivors
+                        retire(d_id, exc)
+                        attempts = 0
+                        continue
+                    time.sleep(self.retry_backoff * 2 ** (attempts - 1))
 
         def land(job) -> None:
-            s, ticket, x = job
-            hist, inter = pipes[s].land(ticket)
-            if emit == "device":
-                # megastep: per-window int32 partials stacked (cap, ·);
-                # summing the first x rows in int64 is landing x windows
-                hist_acc[:] += hist[:x].sum(axis=0)
-                inter_acc[:] += inter[:x, :2].sum(axis=0)
-                nums = [int(inter[i, 2]) for i in range(x)]
-            else:
-                hist_acc[:] += hist[0]
-                inter_acc[:] += inter[0, :2]
-                nums = [x]
+            s, window, ids, fut, x, attempts, poisoned = job
+            while True:
+                try:
+                    pipe, ticket = fut
+                    hist, inter = pipe.land(ticket)
+                    if poisoned:
+                        hist, inter = poison_result(hist, inter)
+                    # megastep: per-window int32 partials stacked
+                    # (cap, ·); summing the first x rows in int64 is
+                    # landing x windows (host emission: x items, 1 row)
+                    real = x if emit == "device" else 1
+                    _validate_partials(hist[:real], inter[:real])
+                    hsum = hist[:real].sum(axis=0)
+                    isum = inter[:real, :2].sum(axis=0)
+                    nums = ([int(inter[i, 2]) for i in range(x)]
+                            if emit == "device" else [x])
+                    break
+                except FaultError as exc:
+                    # validation failure: re-dispatch the SAME window
+                    # (same-device retry, then failover) — the merge is
+                    # order-invariant, so the late landing is identical
+                    attempts += 1
+                    st.retries += 1
+                    if attempts > self.max_retries:
+                        retire(home[s], exc)
+                        attempts = 0
+                    else:
+                        time.sleep(self.retry_backoff
+                                   * 2 ** (attempts - 1))
+                    fut, poisoned, attempts = dispatch_retrying(
+                        s, window, attempts)
+            np.add(hist_acc, hsum, out=hist_acc)
+            np.add(inter_acc, isum, out=inter_acc)
+            if journal is not None:
+                journal.record(s, ids, hsum, isum, nums)
             for num in nums:
-                if progress is not None:
-                    progress(len(chunk_items), total_windows, num)
                 chunk_items.append(num)
+                if progress is not None:
+                    progress(landed[0], total_windows, num)
+                landed[0] += 1
 
+        def restart(slot: int, skip: int):
+            return make_source(live[slot], skip)
+
+        pipeline = ShardStreamPipeline(
+            [make_source(s) for s in live], depth=self.pipeline_depth,
+            batch=batcher, restart=restart,
+            watchdog=self.watchdog_timeout,
+            max_retries=self.max_retries, backoff=self.retry_backoff)
         pending: deque = deque()
-        with ShardStreamPipeline([make_source(s) for s in live],
-                                 depth=self.pipeline_depth,
-                                 batch=batcher) as pipeline:
-            for slot, (words, x) in pipeline:
-                s = live[slot]
-                if emit == "device":
-                    shard_steps[s] += x
-                    win_max = max(win_max, x)
-                    pad_windows += cap - x
-                else:
-                    shard_steps[s] += 1
-                    win_max = 1
-                pending.append((s, pipes[s].submit(words, launches[s]), x))
-                dispatches += 1
-                if len(pending) > limit:
+        try:
+            with pipeline:
+                for slot, window in pipeline:
+                    s = live[slot]
+                    if emit == "device":
+                        x = window[1]
+                        ids = order[s][pos[s]:pos[s] + x]
+                        pos[s] += x
+                        shard_steps[s] += x
+                        win_max = max(win_max, x)
+                        pad_windows += cap - x
+                    else:
+                        wid, _words, x = window
+                        ids = [wid]
+                        shard_steps[s] += 1
+                        win_max = max(win_max, 1)
+                    fut, poisoned, attempts = dispatch_retrying(s, window)
+                    dispatches += 1
+                    pending.append(
+                        (s, window, ids, fut, x, attempts, poisoned))
+                    if len(pending) > limit:
+                        land(pending.popleft())
+                while pending:
                     land(pending.popleft())
-            while pending:
-                land(pending.popleft())
+        finally:
+            if journal is not None:
+                journal.close()
 
-        st = self.stats
         st.chunk_items = chunk_items
         st.chunks = len(chunk_items)
         st.items = int(sum(chunk_items))
         st.shard_steps = shard_steps
         st.stall_steps = pipeline.stalls
+        st.retries += pipeline.producer_retries
+        st.watchdog_fires = pipeline.watchdog_fires
         st.dispatches_total = dispatches
         st.windows_per_dispatch_max = win_max
         st.windows_per_dispatch_mean = (
@@ -1253,6 +1781,103 @@ class _TimedIter:
             self.seconds += time.perf_counter() - t0
 
 
+def _dispatch_retrying_session(session, thunk):
+    """Session-side dispatch retry: call ``thunk`` (upload + launch, with
+    the session's fault-injection hooks inside) under the engine's retry
+    budget with exponential backoff.  Sessions retry on the same device
+    only — failover is an engine-run discipline — so a persistent fault
+    surfaces to the caller once the budget is spent.  Only a
+    :class:`FaultError` is retried."""
+    engine = session.engine
+    attempts = 0
+    while True:
+        try:
+            return thunk()
+        except FaultError:
+            if attempts >= engine.max_retries:
+                raise
+            attempts += 1
+            session.retries += 1
+            time.sleep(engine.retry_backoff * 2 ** (attempts - 1))
+
+
+def _land_retrying_session(session, fetch, ticket, poisoned, redo):
+    """Session-side landing: ``fetch(ticket) -> (hist64, inter)`` int64,
+    poison, validate, and on a validation failure re-dispatch the same
+    window through ``redo() -> (ticket, poisoned)``, up to the engine's
+    retry budget.  Returns the validated partials — the caller
+    accumulates them, so nothing is ever counted twice."""
+    engine = session.engine
+    attempts = 0
+    while True:
+        hist, inter = fetch(ticket)
+        if poisoned:
+            hist, inter = poison_result(hist, inter)
+        try:
+            _validate_partials(hist, inter)
+            return hist, inter
+        except FaultError:
+            if redo is None or attempts >= engine.max_retries:
+                raise
+            attempts += 1
+            session.retries += 1
+            time.sleep(engine.retry_backoff * 2 ** (attempts - 1))
+            ticket, poisoned = redo()
+
+
+def _sorted_union(keys: np.ndarray, extra: np.ndarray) -> np.ndarray:
+    """``np.union1d(keys, extra)`` for a sorted, duplicate-free ``keys``
+    and a short ``extra``: the new keys are inserted in place (one pass
+    over ``keys``) instead of sorting or hashing their concatenation."""
+    extra = np.unique(extra).astype(keys.dtype)
+    at = np.searchsorted(keys, extra)
+    fresh = at == keys.shape[0]
+    fresh[~fresh] = keys[at[~fresh]] != extra[~fresh]
+    return np.insert(keys, at[fresh], extra[fresh])
+
+
+def _session_graph_crc(g: CompactDigraph) -> int:
+    return int(zlib.crc32(np.ascontiguousarray(g.packed).tobytes()))
+
+
+def _save_session_checkpoint(session, path: str) -> None:
+    """Persist a session's running census + graph fingerprint (the JAX
+    package's format) so a new session over the same graph can continue
+    warm updates without recomputing the baseline (every session kind
+    shares this format)."""
+    if session._census is None:
+        raise RuntimeError(
+            "no census to checkpoint: call census() first")
+    with open(path, "w") as f:
+        json.dump({
+            "v": 1, "kind": "session", "n": int(session.n),
+            "orient": session.orient,
+            "prune_self": bool(session.prune_self),
+            "packed_crc": _session_graph_crc(session._g),
+            "census": [int(x) for x in session._census]}, f)
+        f.write("\n")
+
+
+def _load_session_checkpoint(session, path: str) -> np.ndarray:
+    """Restore a running census saved by :func:`_save_session_checkpoint`
+    into a session whose RESIDENT graph matches the checkpoint's
+    fingerprint; :meth:`update` then continues exactly where the saved
+    session left off."""
+    with open(path) as f:
+        rec = json.load(f)
+    want = {"v": 1, "kind": "session", "n": int(session.n),
+            "orient": session.orient,
+            "prune_self": bool(session.prune_self),
+            "packed_crc": _session_graph_crc(session._g)}
+    got = {k: rec.get(k) for k in want}
+    if got != want:
+        raise FaultError(
+            f"session checkpoint {path!r} does not match the resident "
+            f"graph/session ({got} != {want})")
+    session._census = np.asarray(rec["census"], dtype=np.int64)
+    return session._census.copy()
+
+
 class EngineSession:
     """Resident-graph census session: upload once, recount by delta.
 
@@ -1290,7 +1915,21 @@ class EngineSession:
     :attr:`stats` (also ``engine.stats``) records the dispatch schedule,
     including ``full_items`` — what a from-scratch recompute would have
     processed — and ``affected_pairs``, field for field as the JAX
-    package's session on one device.
+    package's session.
+
+    On an engine with several logical devices (replicated, not
+    partitioned) every physical device holds the graph once, the chunk
+    shape is a multiple of the device count, and each dispatch's lanes
+    are split into one contiguous slice per device: the descriptor window
+    goes whole to every device, the packed items are split.  The
+    devices' partials of a dispatch are summed on the host.
+
+    Every dispatch fires the engine's fault injector (``upload`` before
+    the copy, ``dispatch`` before the launch, as shard 0 on device 0) and
+    is retried on the same devices up to the engine's ``max_retries``;
+    landed partials are validated (:attr:`retries` counts the
+    re-attempts).  :meth:`save_checkpoint` / :meth:`load_checkpoint`
+    carry the running census to a new session over the same graph.
     """
 
     def __init__(self, engine: CensusEngine, g: CompactDigraph, *,
@@ -1304,7 +1943,8 @@ class EngineSession:
             raise ValueError(
                 f"unknown emit mode {emit!r}; one of {EMIT_MODES}")
         self.engine = engine
-        self.device = engine.device
+        self._lanes = engine._lanes()
+        self.ndev = len(self._lanes)
         self.orient = orient
         self.prune_self = prune_self
         self.emit = emit
@@ -1319,12 +1959,19 @@ class EngineSession:
         self.search_iters = max(1, int(np.ceil(np.log2(max(g.n, 2)))))
         self._cap_entries = 0
         self._cap_pairs = 0
-        self._dev: tuple[torch.Tensor, ...] | None = None
+        #: resident graph buffers, one set per physical device
+        self._dev: dict = {}
         self.chunk_shape: int | None = None
         self.desc_shape: int | None = None
         self._census: np.ndarray | None = None
         self.last_delta: GraphDelta | None = None
         self.stats: EngineStats | None = None
+        #: injected-fault runtime shared across this session's dispatches
+        #: (occurrence counters persist across census()/update() calls)
+        self._injector = (engine.faults.injector()
+                          if engine.faults is not None else None)
+        #: dispatches re-attempted after a fault, across the session's life
+        self.retries = 0
         self._closed = False
         self._install(g)
         cs = self.chunk_shape
@@ -1334,24 +1981,44 @@ class EngineSession:
                 cs, max_pairs_per_window(space.offsets, cs))
             self.desc_iters = DESC_SEARCH_ITERS
             self.num_anchors = num_desc_anchors(cs)
-            self._idx = torch.arange(cs, dtype=torch.int32,
-                                     device=self.device)
+            self._idx = engine._flat_index(self._lanes, cs)
             self._step = desc_partials_fn(
                 engine.backend, self.search_iters, self.desc_iters,
                 orient, prune_self)
             words = 1 + 3 * self.desc_shape + self.num_anchors
         else:
             self._step = partials_fn(engine.backend, self.search_iters)
-            words = 2 * cs
-        self._pipe = _Pipeline(self.device, (words,))
+            words = 2 * (cs // self.ndev)
+        self._pipes = [_Pipeline(ld.device, (words,), stream=ld.stream)
+                       for ld in self._lanes]
+        self._launches = [self._lane_launch(d)
+                          for d in range(self.ndev)]
+
+    def _lane_launch(self, d: int):
+        """``launch(words)`` of logical device ``d``: its slice of the
+        dispatch's lanes against the resident buffers as they are at
+        launch time (a capacity growth reallocates them)."""
+        device = self._lanes[d].device
+        per = self.chunk_shape // self.ndev
+        if self.emit == "device":
+            def launch(words):
+                nv, dp, dc, dw, an = split_device_words(words,
+                                                        self.num_anchors)
+                return self._step(*self._dev[device], dp, dc, dw, an, nv,
+                                  self._idx[device][d * per:(d + 1) * per])
+        else:
+            def launch(words):
+                return self._step(*self._dev[device], words[:per],
+                                  words[per:])
+        return launch
 
     # ---------------------------------------------------------- lifecycle
     def close(self) -> None:
         """Release the resident device buffers.  Idempotent; the session
         is unusable afterwards."""
-        self._dev = None
+        self._dev = {}
         self._idx = None
-        self._pipe = None
+        self._pipes = None
         self._closed = True
 
     def __enter__(self) -> "EngineSession":
@@ -1363,6 +2030,19 @@ class EngineSession:
     def _check_open(self) -> None:
         if self._closed:
             raise RuntimeError("session is closed")
+
+    # ------------------------------------------------------- checkpointing
+    def save_checkpoint(self, path: str) -> None:
+        """Persist the running census + graph fingerprint (JSON) so a new
+        session over the same graph resumes warm updates via
+        :meth:`load_checkpoint` without recomputing the baseline."""
+        _save_session_checkpoint(self, path)
+
+    def load_checkpoint(self, path: str) -> np.ndarray:
+        """Adopt a census saved by :meth:`save_checkpoint`; the resident
+        graph must match the checkpoint's fingerprint.  Returns the
+        restored census; later :meth:`update` calls continue from it."""
+        return _load_session_checkpoint(self, path)
 
     # ------------------------------------------------------------ state
     @property
@@ -1405,23 +2085,30 @@ class EngineSession:
         if self.chunk_shape is None:
             budget = (self.max_items if self.max_items is not None
                       else max(space.num_items_preprune, 1))
-            self.chunk_shape = _guard_chunk_shape(max(int(budget), 1))
+            self.chunk_shape = _guard_chunk_shape(
+                -(-max(int(budget), 1) // self.ndev) * self.ndev)
         cap_entries = self._grown(self._cap_entries, space.packed.shape[0])
         cap_pairs = self._grown(self._cap_pairs, space.num_pairs)
-        if self._dev is None or (cap_entries, cap_pairs) != (
+        if not self._dev or (cap_entries, cap_pairs) != (
                 self._cap_entries, self._cap_pairs):
             self._cap_entries, self._cap_pairs = cap_entries, cap_pairs
-            self._dev = tuple(
-                torch.zeros(size, dtype=torch.int32, device=self.device)
-                for size in (self.n + 1, cap_entries, cap_pairs,
-                             cap_pairs, cap_pairs))
+            self._dev = {}
+            for ld in self._lanes:
+                if ld.device not in self._dev:
+                    self._dev[ld.device] = tuple(
+                        torch.zeros(size, dtype=torch.int32,
+                                    device=ld.device)
+                        for size in (self.n + 1, cap_entries, cap_pairs,
+                                     cap_pairs, cap_pairs))
         host = (space.indptr.astype(np.int32),
                 _pad_i32(space.packed, cap_entries),
                 _pad_i32(space.pair_u, cap_pairs),
                 _pad_i32(space.pair_v, cap_pairs),
                 _pad_i32(space.pair_code, cap_pairs))
-        for dev, arr in zip(self._dev, host):
-            dev.copy_(torch.from_numpy(arr))
+        for bufs in self._dev.values():
+            for dev, arr in zip(bufs, host):
+                dev.copy_(torch.from_numpy(arr))
+        _after_uploads(self._lanes)
 
     def set_graph(self, g: CompactDigraph) -> None:
         """Replace the resident graph wholesale (no delta bookkeeping).
@@ -1437,38 +2124,42 @@ class EngineSession:
     def _run_batches(self, batches
                      ) -> tuple[np.ndarray, np.ndarray, list[int]]:
         """Dispatch item batches (each with at most ``chunk_shape``
-        items) against the resident device graph; empty batches are
-        skipped without a dispatch.  Returns int64 partials and the
-        items per dispatch."""
+        items) against the resident device graph, each device its
+        contiguous slice of the packed items; empty batches are skipped
+        without a dispatch.  Returns int64 partials and the items per
+        dispatch."""
         cs = self.chunk_shape
+        per = cs // self.ndev
         chunk_items: list[int] = []
 
-        def words():
+        def steps():
             for item_pair, item_slot, item_side in batches:
                 if item_pair.shape[0]:
                     chunk_items.append(int(item_pair.shape[0]))
-                    yield [np.concatenate(pad_and_pack(
-                        item_pair, item_slot, item_side, cs))]
+                    sp, pv = pad_and_pack(item_pair, item_slot, item_side,
+                                          cs)
+                    yield [np.concatenate([sp[d * per:(d + 1) * per],
+                                           pv[d * per:(d + 1) * per]])
+                           for d in range(self.ndev)]
 
-        hist, inter = _dispatch(
-            [self._pipe], [_item_launcher(self._step, self._dev, cs)],
-            words())
+        hist, inter = _dispatch(self._pipes, self._launches, steps(),
+                                session=self)
         return hist, inter, chunk_items
 
     def _run_desc_batches(self, windows
                           ) -> tuple[np.ndarray, np.ndarray, list[int]]:
         """Device-emission twin of :meth:`_run_batches`: dispatch
-        descriptor windows against the resident graph and flat-index
-        arrays.  Valid-item counts come back from the device (``inter``
-        lane 2), so the stats match host emission without materializing
-        a single item."""
+        descriptor windows (whole, to every device) against the resident
+        graph and flat-index arrays.  Valid-item counts come back from
+        the device (``inter`` lane 2), so the stats match host emission
+        without materializing a single item."""
         chunk_items: list[int] = []
         hist, inter = _dispatch(
-            [self._pipe],
-            [_desc_launcher(self._step, self._dev, self._idx,
-                            self.num_anchors)],
-            ([win.device_words()] for win in windows if win.num_preprune),
-            lambda k, inter3: chunk_items.append(int(inter3[2])))
+            self._pipes, self._launches,
+            ([win.device_words()] * self.ndev
+             for win in windows if win.num_preprune),
+            lambda k, inter3: chunk_items.append(int(inter3[2])),
+            session=self)
         return hist, inter, chunk_items
 
     def _slices(self, item_pair, item_slot, item_side):
@@ -1521,20 +2212,25 @@ class EngineSession:
 
     def _set_stats(self, chunk_items: list[int], items: int,
                    full_items: int, affected_pairs: int) -> None:
+        ndev = self.ndev
         gbytes = replicated_graph_bytes(self._space)
         self.stats = EngineStats(
-            backend=self.engine.backend, orient=self.orient,
+            backend=self.engine.backend, ndev=ndev, orient=self.orient,
             streamed=True, max_items=self.max_items,
             chunks=len(chunk_items), chunk_shape=self.chunk_shape,
             items=items, chunk_items=chunk_items,
             peak_plan_bytes=ITEM_BYTES * self.chunk_shape,
-            monolithic_plan_bytes=ITEM_BYTES * full_items,
+            monolithic_plan_bytes=ITEM_BYTES
+            * (-(-full_items // ndev) * ndev),
             full_items=full_items, affected_pairs=affected_pairs,
             emit=self.emit, desc_shape=self.desc_shape or 0,
+            # per-device plan bytes: descriptor windows go whole to every
+            # device, packed items are split across them
             plan_upload_bytes=(
                 DESC_BYTES * self.desc_shape + 4 * self.num_anchors + 4
                 if self.emit == "device"
-                else ITEM_BYTES * self.chunk_shape),
+                else ITEM_BYTES * self.chunk_shape // ndev),
+            retries=self.retries,
             graph_resident_bytes=gbytes, graph_replicated_bytes=gbytes,
             host_pair_seconds=self._t_pair,
             host_merge_seconds=self._t_merge,
@@ -1621,3 +2317,719 @@ class EngineSession:
                         self._postprune_items(),
                         int(aff_old.shape[0] + aff_new.shape[0]))
         return self._census.copy()
+
+
+class PartitionedEngineSession:
+    """Partition-resident census session: each shard lives on its logical
+    device, delta updates dispatch only the shards owning touched pairs.
+
+    On open the graph's pair space is LPT-split into one private shard
+    per logical device (:mod:`repro_torch.core.partition`); each shard's
+    relabeled local CSR + pair arrays are written into fixed-capacity
+    buffers on THAT device (capacities are common across shards and grown
+    geometrically; the plain versions' row-search depth is pinned to
+    ``ceil(log2 n)`` exactly like :class:`EngineSession`).  Each shard
+    dispatches on its device's stream through its own pipeline, with at
+    most ``2 * ndev`` dispatches in flight; partials are merged on the
+    host in int64 (the paper's private census vectors, merged once).
+
+    :meth:`update` applies an edge delta and routes the recount by
+    ownership: the *affected pairs* (endpoint row changed) are looked up
+    in each shard's sorted key set, only the owning shards re-count their
+    slices (old contribution against the still-resident arrays, then new
+    contribution after only those shards re-extract + re-upload), and
+    **untouched shards dispatch nothing** — no descriptor/item upload, no
+    device work, their resident subgraphs unchanged.  Pairs that appear
+    in the delta join a shard already owning one of their endpoints'
+    pairs while it is below 1.25x the mean load, else the lightest shard.
+    Bit-identical to a from-scratch census of the edited graph on every
+    backend, orient and emit mode.
+
+    :meth:`rebalance` re-shards with a fresh LPT over the CURRENT pair
+    space (every shard re-extracted + re-uploaded; the running census
+    stays valid — counts never depend on ownership);
+    ``auto_rebalance_threshold`` triggers it at the end of any
+    :meth:`update` that leaves ``load_max_over_mean`` above the threshold
+    (``rebalances`` counts the triggers).
+
+    Dispatches fire the engine's fault injector (shard ``s`` on device
+    ``s``) and retry on the same device, as :class:`EngineSession`'s do.
+    """
+
+    def __init__(self, engine: CensusEngine, g: CompactDigraph, *,
+                 orient: str = "none", prune_self: bool = True,
+                 max_items: int | None = None, emit: str | None = None,
+                 auto_rebalance_threshold: float | None = None,
+                 index: bool = True):
+        if max_items is not None and max_items < 1:
+            raise ValueError(f"max_items must be >= 1, got {max_items}")
+        if auto_rebalance_threshold is not None \
+                and auto_rebalance_threshold < 1.0:
+            raise ValueError(
+                "auto_rebalance_threshold must be >= 1.0, got "
+                f"{auto_rebalance_threshold}")
+        emit = engine.emit if emit is None else emit
+        if emit not in EMIT_MODES:
+            raise ValueError(
+                f"unknown emit mode {emit!r}; one of {EMIT_MODES}")
+        self.auto_rebalance_threshold = (
+            None if auto_rebalance_threshold is None
+            else float(auto_rebalance_threshold))
+        self.rebalances = 0
+        self.engine = engine
+        self.orient = orient
+        self.prune_self = prune_self
+        self.emit = emit
+        self.n = g.n
+        self.max_items = max_items
+        self.ndev = engine.ndev
+        self._lanes = engine._lanes()
+        #: pinned row-search depth (see :class:`EngineSession`)
+        self.search_iters = max(1, int(np.ceil(np.log2(max(g.n, 2)))))
+        self._cap_n = self._cap_entries = self._cap_pairs = 0
+        self.chunk_shape: int | None = None
+        self.desc_shape: int | None = None
+        self._census: np.ndarray | None = None
+        self.last_delta: GraphDelta | None = None
+        self.stats: EngineStats | None = None
+        #: injected-fault runtime shared across this session's dispatches
+        self._injector = (engine.faults.injector()
+                          if engine.faults is not None else None)
+        #: dispatches re-attempted after a fault, across the session's life
+        self.retries = 0
+        self._closed = False
+        #: delta-incremental host planning (see :class:`EngineSession`)
+        self.use_index = bool(index)
+        self._pair_index: PairSpaceIndex | None = None
+        self._t_pair = self._t_merge = self._t_emit = 0.0
+        self._dev: list = [None] * self.ndev
+        self._pipes = None
+        self._install_full(g)
+
+    # ---------------------------------------------------------- lifecycle
+    def close(self) -> None:
+        """Release every shard's resident device buffers.  Idempotent;
+        the session is unusable afterwards."""
+        self._dev = [None] * self.ndev
+        self._idx = None
+        self._pipes = None
+        self._closed = True
+
+    def __enter__(self) -> "PartitionedEngineSession":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.close()
+
+    def _check_open(self) -> None:
+        if self._closed:
+            raise RuntimeError("session is closed")
+
+    # ------------------------------------------------------- checkpointing
+    def save_checkpoint(self, path: str) -> None:
+        """Persist the running census + graph fingerprint (JSON); a new
+        session over the same graph warm-resumes updates via
+        :meth:`load_checkpoint`.  The census never depends on the
+        partition, so the restoring session may shard however it
+        likes."""
+        _save_session_checkpoint(self, path)
+
+    def load_checkpoint(self, path: str) -> np.ndarray:
+        """Adopt a census saved by :meth:`save_checkpoint` (the resident
+        graph must match its fingerprint); :meth:`update` continues from
+        it."""
+        return _load_session_checkpoint(self, path)
+
+    # ------------------------------------------------------------ state
+    @property
+    def graph(self) -> CompactDigraph:
+        return self._g
+
+    @property
+    def space(self) -> PairSpace:
+        """The GLOBAL pair space of the resident graph."""
+        return self._space
+
+    @property
+    def shards(self):
+        return list(self._shards)
+
+    @property
+    def counts(self) -> np.ndarray | None:
+        return None if self._census is None else self._census.copy()
+
+    def _install_full(self, g: CompactDigraph) -> None:
+        """(Re)partition ``g`` from scratch and make every shard
+        device-resident (session open and :meth:`set_graph`)."""
+        self._g = g
+        t0 = time.perf_counter()
+        if self.use_index:
+            self._pair_index = PairSpaceIndex(
+                g, orient=self.orient, prune_self=self.prune_self)
+            space = self._pair_index.space
+        else:
+            space = pair_space(g, orient=self.orient,
+                               prune_self=self.prune_self)
+        self._t_pair += time.perf_counter() - t0
+        self._space = space
+        self._full_items: int | None = None
+        part = self._make_partition(space)
+        self._shards = list(part.shards)
+        self._keys = [sh.keys for sh in self._shards]
+        self._set_ownership(part)
+        if self.chunk_shape is None:
+            budget = (self.max_items if self.max_items is not None
+                      else max(space.num_items_preprune, 1))
+            self.chunk_shape = _guard_chunk_shape(
+                -(-max(int(budget), 1) // self.ndev))
+        cs = self.chunk_shape
+        if self._pipes is None:
+            if self.emit == "device":
+                self.desc_shape = _desc_capacity(
+                    cs, max(max_pairs_per_window(sh.space.offsets, cs)
+                            for sh in self._shards))
+                self.desc_iters = DESC_SEARCH_ITERS
+                self.num_anchors = num_desc_anchors(cs)
+                self._idx = self.engine._flat_index(self._lanes, cs)
+                self._step = desc_partials_fn(
+                    self.engine.backend, self.search_iters,
+                    self.desc_iters, self.orient, self.prune_self)
+                words = 1 + 3 * self.desc_shape + self.num_anchors
+            else:
+                self._step = partials_fn(self.engine.backend,
+                                         self.search_iters)
+                words = 2 * cs
+            self._pipes = [_Pipeline(ld.device, (words,), stream=ld.stream,
+                                     ring=2 * self.ndev + 2)
+                           for ld in self._lanes]
+        self._upload_shards(range(self.ndev))
+
+    # ----------------------------------------------- ownership hooks
+    # The 2D session (:class:`PartitionedEngineSession2D`) overrides
+    # these four: there a device holds a TILE (pair shard × vertex
+    # slice) while ownership/load bookkeeping stays per pair shard.
+    def _make_partition(self, space):
+        """Partition ``space`` into the device-resident shard list."""
+        return partition_graph(num_shards=self.ndev, space=space)
+
+    def _set_ownership(self, part) -> None:
+        """Record ownership/load bookkeeping from a fresh partition."""
+        self._load = [sh.items for sh in self._shards]
+
+    def _tile_shard(self, s: int) -> int:
+        """Device/tile index → owning pair shard (identity in 1D)."""
+        return s
+
+    def _ownership(self) -> list:
+        """Per pair shard sorted global key arrays (the reassignment
+        target of :meth:`update`); the per-device dispatch key sets in
+        1D, the per-shard sets distinct from ``_keys`` in 2D."""
+        return self._keys
+
+    def _upload_shards(self, shard_ids) -> None:
+        """Write the listed shards' padded local arrays into their
+        devices' resident buffers; a capacity growth reallocates every
+        shard's buffers, so it rewrites them all.  Each written device's
+        stream is ordered after the writes."""
+        need_n = max(max(sh.graph.indptr.shape[0]
+                         for sh in self._shards), 2)
+        need_e = max(max(sh.graph.packed.shape[0]
+                         for sh in self._shards), 1)
+        need_p = max(max(sh.num_pairs for sh in self._shards), 1)
+        prev = (self._cap_n, self._cap_entries, self._cap_pairs)
+        self._cap_n = EngineSession._grown(self._cap_n, need_n)
+        self._cap_entries = EngineSession._grown(self._cap_entries,
+                                                 need_e)
+        self._cap_pairs = EngineSession._grown(self._cap_pairs, need_p)
+        caps = (self._cap_n, self._cap_entries, self._cap_pairs)
+        if prev != caps:
+            shard_ids = range(self.ndev)
+            for s, ld in enumerate(self._lanes):
+                self._dev[s] = tuple(
+                    torch.zeros(size, dtype=torch.int32, device=ld.device)
+                    for size in (self._cap_n, self._cap_entries,
+                                 self._cap_pairs, self._cap_pairs,
+                                 self._cap_pairs))
+        shard_ids = list(shard_ids)
+        for s in shard_ids:
+            sh = self._shards[s]
+            ip = np.zeros(self._cap_n, dtype=np.int32)
+            ln = sh.graph.indptr.shape[0]
+            ip[:ln] = sh.graph.indptr
+            ip[ln:] = sh.graph.indptr[-1]      # phantom empty rows
+            host = (ip, _pad_i32(sh.graph.packed, self._cap_entries),
+                    _pad_i32(sh.space.pair_u, self._cap_pairs),
+                    _pad_i32(sh.space.pair_v, self._cap_pairs),
+                    _pad_i32(sh.space.pair_code, self._cap_pairs))
+            for dev, arr in zip(self._dev[s], host):
+                dev.copy_(torch.from_numpy(arr))
+        _after_uploads([self._lanes[s] for s in shard_ids])
+
+    def set_graph(self, g: CompactDigraph) -> None:
+        """Replace the resident graph wholesale: fresh LPT partition,
+        every shard re-extracted + re-uploaded.  Invalidates the running
+        census until :meth:`census` recomputes."""
+        self._check_open()
+        if g.n != self.n:
+            raise ValueError(f"session is pinned to n={self.n}, got {g.n}")
+        self._install_full(g)
+        self._census = None
+        self.last_delta = None
+
+    @property
+    def load_max_over_mean(self) -> float:
+        """Current shard load imbalance (post-prune items; 1.0 ==
+        perfectly balanced) — the quantity ``auto_rebalance_threshold``
+        is compared against after every update."""
+        total = sum(self._load)
+        if not total:
+            return 1.0
+        return max(self._load) / (total / len(self._load))
+
+    def rebalance(self) -> None:
+        """Re-shard the CURRENT resident graph with a fresh LPT: every
+        shard re-extracts + re-uploads, restoring ≈LPT balance after
+        churn has drifted the locality-routed loads.  The running census
+        and the pair space are untouched."""
+        self._check_open()
+        part = self._make_partition(self._space)
+        self._shards = list(part.shards)
+        self._keys = [sh.keys for sh in self._shards]
+        self._set_ownership(part)
+        self._upload_shards(range(self.ndev))
+        self.rebalances += 1
+
+    def _maybe_rebalance(self) -> None:
+        if self.auto_rebalance_threshold is not None and \
+                self.load_max_over_mean > self.auto_rebalance_threshold:
+            self.rebalance()
+
+    # ---------------------------------------------------------- running
+    def _launch(self, s: int, words):
+        """Launch one window of shard ``s`` against its resident buffers
+        as they are now (a capacity growth reallocates them)."""
+        if self.emit == "device":
+            nv, dp, dc, dw, an = split_device_words(words, self.num_anchors)
+            return self._step(*self._dev[s], dp, dc, dw, an, nv,
+                              self._idx[self._lanes[s].device])
+        cs = self.chunk_shape
+        return self._step(*self._dev[s], words[:cs], words[cs:])
+
+    def _dispatch(self, s: int, words):
+        """One window's words onto shard ``s``'s device and its launch
+        there, the session's fault hooks fired before the copy and
+        before the launch; returns ``(ticket, poisoned)``."""
+        inj = self._injector
+        fire = (None if inj is None else
+                lambda site: inj.fire(site, shard=s, device=s))
+        ticket = self._pipes[s].submit(
+            words, lambda w: self._launch(s, w), fire)
+        return ticket, (inj.take_poison() if inj is not None else False)
+
+    def _shard_jobs(self, s: int, pair_ids=None):
+        """Yield shard ``s``'s dispatch jobs: its full stream
+        (``pair_ids=None``) or a local pair subset.  Each job is
+        ``(ticket, poisoned, redo, num_or_None)`` — ``redo`` re-dispatches
+        the same window (the landing-side retry handle), ``num`` is the
+        item count under host emission and ``None`` under device emission
+        (counts come back from the device).  Dispatch-time faults are
+        retried here under the engine's budget."""
+        sp = self._shards[s].space
+        cs = self.chunk_shape
+        if self.emit == "device":
+            wins = _TimedIter(
+                iter_descriptor_windows(sp.offsets, cs,
+                                        self.desc_shape,
+                                        self.num_anchors)
+                if pair_ids is None else
+                subset_descriptor_windows(sp, pair_ids, cs,
+                                          self.desc_shape,
+                                          self.num_anchors))
+            for win in wins:
+                if win.num_preprune == 0:
+                    continue
+
+                def redo(words=win.device_words()):
+                    return _dispatch_retrying_session(
+                        self, lambda: self._dispatch(s, words))
+
+                ticket, poisoned = redo()
+                yield ticket, poisoned, redo, None
+            self._t_emit += wins.seconds
+            return
+        if pair_ids is None:
+            w0 = sp.num_items_preprune
+            batches = _TimedIter(emit_items(sp, lo, min(lo + cs, w0))
+                                 for lo in range(0, w0, cs))
+        else:
+            t0 = time.perf_counter()
+            items = emit_items_for_pairs(sp, pair_ids)
+            self._t_emit += time.perf_counter() - t0
+            batches = _TimedIter(
+                (items[0][lo:lo + cs], items[1][lo:lo + cs],
+                 items[2][lo:lo + cs])
+                for lo in range(0, max(int(items[0].shape[0]), 1), cs))
+        for batch in batches:
+            num = int(batch[0].shape[0])
+            if num == 0:
+                continue
+
+            def redo(words=np.concatenate(pad_and_pack(*batch, cs))):
+                return _dispatch_retrying_session(
+                    self, lambda: self._dispatch(s, words))
+
+            ticket, poisoned = redo()
+            yield ticket, poisoned, redo, num
+        self._t_emit += batches.seconds
+
+    def _job_stream(self, s: int, pair_ids=None):
+        """Shard ``s``'s jobs tagged with their shard id (a bound helper,
+        so per-shard generators never share a loop variable)."""
+        for ticket, poisoned, redo, num in self._shard_jobs(s, pair_ids):
+            yield s, ticket, poisoned, redo, num
+
+    def _land(self, jobs, hist_acc, inter_acc, chunk_items, shard_items):
+        """Accumulate ``(shard, ticket, poisoned, redo, num_or_None)``
+        jobs, re-dispatching through ``redo`` on corrupted partials (the
+        landing half of the session retry)."""
+        for s, ticket, poisoned, redo, num in jobs:
+            pipe = self._pipes[s]
+            hist, inter = _land_retrying_session(
+                self, lambda t: tuple(a[0] for a in pipe.land(t)),
+                ticket, poisoned, redo)
+            if num is None:
+                num = int(inter[2])
+            inter_acc += inter[:2]
+            hist_acc += hist
+            chunk_items.append(num)
+            shard_items[s] += num
+
+    def _drain(self, streams, hist_acc, inter_acc, chunk_items,
+               shard_items) -> None:
+        """Pull per-shard job streams round-robin (every device gets fed
+        each cycle) with at most ``2 * ndev`` dispatches — and their
+        buffers — pending at once, so host and device memory stay
+        O(ndev · chunk_shape)."""
+        limit = 2 * self.ndev
+        pending: deque = deque()
+        active = list(streams)
+        while active:
+            alive = []
+            for it in active:
+                job = next(it, None)
+                if job is None:
+                    continue
+                alive.append(it)
+                pending.append(job)
+                if len(pending) > limit:
+                    self._land([pending.popleft()], hist_acc, inter_acc,
+                               chunk_items, shard_items)
+            active = alive
+        self._land(pending, hist_acc, inter_acc, chunk_items,
+                   shard_items)
+
+    def _postprune_items(self) -> int:
+        if self._full_items is None:
+            if self.use_index and self._pair_index is not None:
+                self._full_items = int(self._pair_index.costs.sum())
+            else:
+                self._full_items = self._space.num_items_postprune()
+        return self._full_items
+
+    def _set_stats(self, chunk_items, shard_items, items, full_items,
+                   affected_pairs) -> None:
+        self.stats = EngineStats(
+            backend=self.engine.backend, ndev=self.ndev,
+            orient=self.orient, streamed=True, max_items=self.max_items,
+            chunks=len(chunk_items), chunk_shape=self.chunk_shape,
+            items=items, chunk_items=chunk_items,
+            peak_plan_bytes=ITEM_BYTES * self.chunk_shape,
+            monolithic_plan_bytes=ITEM_BYTES
+            * (-(-full_items // self.ndev) * self.ndev),
+            full_items=full_items, affected_pairs=affected_pairs,
+            emit=self.emit, desc_shape=self.desc_shape or 0,
+            plan_upload_bytes=(
+                DESC_BYTES * self.desc_shape + 4 * self.num_anchors + 4
+                if self.emit == "device"
+                else ITEM_BYTES * self.chunk_shape),
+            retries=self.retries,
+            partitioned=True,
+            partition_shape=getattr(self, "mesh_shape", None),
+            shard_items=shard_items,
+            graph_resident_bytes=max(sh.resident_bytes
+                                     for sh in self._shards),
+            graph_replicated_bytes=replicated_graph_bytes(self._space),
+            host_pair_seconds=self._t_pair,
+            host_merge_seconds=self._t_merge,
+            host_emit_seconds=self._t_emit, indexed=self.use_index)
+        self._t_pair = self._t_merge = self._t_emit = 0.0
+        self.engine.stats = self.stats
+
+    def census(self) -> np.ndarray:
+        """Full census of the resident graph: every shard walks its own
+        stream on its own device, partials merge on the host.  (Re)bases
+        the running C_k that :meth:`update` moves forward."""
+        self._check_open()
+        hist_acc = np.zeros(64, np.int64)
+        inter_acc = np.zeros(2, np.int64)
+        chunk_items: list[int] = []
+        shard_items = [0] * self.ndev
+        self._drain([self._job_stream(s) for s in range(self.ndev)],
+                    hist_acc, inter_acc, chunk_items, shard_items)
+        base_asym, base_mut = global_bases(self._space)
+        self._census = assemble_counts(self.n, base_asym, base_mut,
+                                       hist_acc, inter_acc)
+        items = int(sum(chunk_items))
+        self._full_items = items
+        self._set_stats(chunk_items, shard_items, items, items,
+                        self._space.num_pairs)
+        return self._census.copy()
+
+    def _recount(self, aff_keys, chunk_items, shard_items,
+                 touched_owner=None, touched=None):
+        """Contribution of the affected pairs, recounted shard by shard
+        on the CURRENT resident arrays; shards owning none of them are
+        never dispatched.  Returns (contribution, dirty shard ids)."""
+        base_asym = base_mut = 0
+        streams = []
+        dirty = []
+        for s in range(self.ndev):
+            loc = np.nonzero(np.isin(self._keys[s], aff_keys,
+                                     assume_unique=True))[0]
+            if loc.size == 0:
+                continue
+            dirty.append(s)
+            sh = self._shards[s]
+            if touched_owner is not None:
+                # remember which shard owns each touched vertex's pairs —
+                # appeared pairs are assigned for locality from this map
+                gids = sh.pair_ids[loc]
+                for u in np.intersect1d(
+                        np.concatenate([self._space.pair_u[gids],
+                                        self._space.pair_v[gids]]),
+                        touched).tolist():
+                    touched_owner.setdefault(int(u),
+                                             self._tile_shard(s))
+            ba, bm = base_for_pairs(sh.space, loc)
+            base_asym += ba
+            base_mut += bm
+            streams.append(self._job_stream(s, loc))
+        hist = np.zeros(64, np.int64)
+        inter = np.zeros(2, np.int64)
+        self._drain(streams, hist, inter, chunk_items, shard_items)
+        return contribution_counts(base_asym, base_mut, hist, inter), \
+            dirty
+
+    def _refresh_shards(self, dirty, space_new, key_all_new,
+                        costs_new=None) -> None:
+        """Re-extract + re-upload the dirty pair shards against the new
+        space; untouched shards keep their device buffers verbatim.
+        ``costs_new`` is the per-pair post-prune cost vector — the
+        session index's when it has one, else one global scan shared by
+        every dirty shard."""
+        if costs_new is None:
+            costs_new = postprune_pair_counts(space_new)
+        for s in dirty:
+            ids = np.searchsorted(key_all_new, self._keys[s])
+            self._shards[s] = extract_shard(space_new, ids, index=s,
+                                            costs=costs_new)
+            self._load[s] = self._shards[s].items
+        self._upload_shards(dirty)
+
+    def update(self, add_src=None, add_dst=None,
+               del_src=None, del_dst=None) -> np.ndarray:
+        """Apply an edge delta and return the edited graph's census.
+
+        Only the shards owning affected pairs recount (old contribution
+        on their still-resident arrays, new contribution after refresh);
+        every other shard keeps its device buffers untouched and
+        dispatches nothing.  Bit-identical to a from-scratch census."""
+        self._check_open()
+        if self._census is None:
+            raise RuntimeError(
+                "no baseline census: call census() before update()")
+        t0 = time.perf_counter()
+        g_new, delta = apply_delta(self._g, add_src, add_dst,
+                                   del_src, del_dst)
+        self._t_merge += time.perf_counter() - t0
+        self.last_delta = delta
+        if delta.num_changed == 0:
+            self._set_stats([], [0] * self.ndev, 0,
+                            self._postprune_items(), 0)
+            return self._census.copy()
+
+        n = self.n
+        space_old = self._space
+        t0 = time.perf_counter()
+        if self.use_index:
+            aff_old = self._pair_index.affected_pair_ids(delta.touched)
+        else:
+            aff_old = affected_pair_ids(space_old, delta.touched)
+        aff_keys_old = (space_old.pair_u * n + space_old.pair_v)[aff_old]
+        self._t_pair += time.perf_counter() - t0
+        chunk_items: list[int] = []
+        shard_items = [0] * self.ndev
+        touched_owner: dict[int, int] = {}
+        contrib_old, dirty_old = self._recount(
+            aff_keys_old, chunk_items, shard_items,
+            touched_owner=touched_owner, touched=delta.touched)
+
+        # ---- reassign ownership and refresh only the dirty shards
+        self._g = g_new
+        t0 = time.perf_counter()
+        if self.use_index:
+            # edit the persistent index into the new pair space; its
+            # maintained keys/costs also feed the owner routing and the
+            # dirty-shard refresh below
+            space_new = self._pair_index.apply(delta, g_new)
+            key_all_new = self._pair_index.keys
+            costs_new = self._pair_index.costs
+        else:
+            space_new = pair_space(g_new, orient=self.orient,
+                                   prune_self=self.prune_self)
+            key_all_new = space_new.pair_u * n + space_new.pair_v
+            costs_new = None
+        self._t_pair += time.perf_counter() - t0
+        self._space = space_new
+        self._full_items = None
+        dkeys = delta.pair_lo * n + delta.pair_hi
+        vanished = dkeys[delta.new_code == 0]
+        appeared = dkeys[delta.old_code == 0]
+        okeys = self._ownership()
+        # dirty is tracked per PAIR SHARD (== per device in 1D; a 2D
+        # shard refreshes all of its vertex-slice tiles together so the
+        # designated base-term slice stays consistent within the shard)
+        dirty = {self._tile_shard(t) for t in dirty_old}
+        if vanished.size:
+            for s in sorted(dirty):  # vanished pairs were affected-old
+                okeys[s] = np.setdiff1d(okeys[s], vanished,
+                                        assume_unique=True)
+        if appeared.size:
+            pending: dict[int, list[int]] = {}
+            # locality first — an appeared pair joins the shard already
+            # owning its endpoints' pairs — but only while that shard is
+            # within 1.25x of the mean load; past it, spill to the
+            # lightest shard so sustained churn cannot concentrate the
+            # whole pair space onto one device
+            cap = 1.25 * (sum(self._load) / len(self._load)) + 1.0
+            for k in appeared.tolist():
+                u, v = divmod(k, n)
+                s = touched_owner.get(u, touched_owner.get(v))
+                if s is None or self._load[s] > cap:
+                    s = int(np.argmin(self._load))
+                touched_owner.setdefault(u, s)
+                touched_owner.setdefault(v, s)
+                idx = int(np.searchsorted(key_all_new, k))
+                self._load[s] += int(space_new.counts[idx])
+                pending.setdefault(s, []).append(k)
+            for s, ks in pending.items():
+                okeys[s] = _sorted_union(okeys[s], np.asarray(ks, np.int64))
+                dirty.add(s)
+        self._refresh_shards(sorted(dirty), space_new, key_all_new,
+                             costs_new)
+
+        # ---- new-side recount (owners of every affected new pair are,
+        # by construction, in the refreshed dirty set)
+        t0 = time.perf_counter()
+        if self.use_index:
+            aff_new = self._pair_index.affected_pair_ids(delta.touched)
+        else:
+            aff_new = affected_pair_ids(space_new, delta.touched)
+        aff_keys_new = key_all_new[aff_new]
+        self._t_pair += time.perf_counter() - t0
+        contrib_new, _ = self._recount(
+            aff_keys_new, chunk_items, shard_items)
+        self._census = combine(self._census, contrib_old, contrib_new,
+                               self.n)
+        self._set_stats(chunk_items, shard_items,
+                        int(sum(chunk_items)),
+                        self._postprune_items(),
+                        int(aff_old.shape[0] + aff_new.shape[0]))
+        self._maybe_rebalance()
+        return self._census.copy()
+
+
+class PartitionedEngineSession2D(PartitionedEngineSession):
+    """2D-partition-resident session: device = tile (pair shard × vertex
+    slice), ownership = pair shard.
+
+    Every device-facing mechanism of :class:`PartitionedEngineSession`
+    runs verbatim over the flat tile list (tile ``(s, j)`` at device
+    ``s * V + j``).  What the second axis changes is *bookkeeping*: a
+    pair belongs to one pair shard (``_ownership`` tracks per-shard key
+    sets), its items split across that shard's ``V`` tiles by witness
+    vertex range, and its closed-form base term is credited to one
+    designated tile (:func:`repro_torch.core.partition.slice_pair_terms`)
+    so per-tile bases stay subset-additive.
+
+    :meth:`update` recounts affected pairs only on the tiles whose
+    vertex slice holds some of their items, and a dirty shard
+    re-extracts all of its slice tiles together against the session's
+    pinned vertex bounds.  Bit-identical to the 1D and unpartitioned
+    sessions on every backend, orient and emit mode.
+    """
+
+    def __init__(self, engine: CensusEngine, g: CompactDigraph, *,
+                 mesh_shape: tuple, **kwargs):
+        mesh_shape = (int(mesh_shape[0]), int(mesh_shape[1]))
+        if mesh_shape[0] * mesh_shape[1] != engine.ndev:
+            raise ValueError(
+                f"mesh_shape {mesh_shape} needs "
+                f"{mesh_shape[0] * mesh_shape[1]} devices; the engine "
+                f"has {engine.ndev}")
+        self.mesh_shape = mesh_shape
+        super().__init__(engine, g, **kwargs)
+
+    def _make_partition(self, space):
+        return partition_graph_2d(space=space,
+                                  mesh_shape=self.mesh_shape)
+
+    def _set_ownership(self, part) -> None:
+        num_shards, num_slices = self.mesh_shape
+        self._vertex_bounds = np.asarray(part.vertex_bounds,
+                                         dtype=np.int64)
+        space = part.space
+        key_all = (space.pair_u.astype(np.int64) * space.n
+                   + space.pair_v)
+        self._shard_keys = [np.sort(key_all[part.owner == s])
+                            for s in range(num_shards)]
+        self._load = [sum(self._shards[s * num_slices + j].items
+                          for j in range(num_slices))
+                      for s in range(num_shards)]
+
+    def _tile_shard(self, s: int) -> int:
+        return s // self.mesh_shape[1]
+
+    def _ownership(self) -> list:
+        return self._shard_keys
+
+    def _refresh_shards(self, dirty, space_new, key_all_new,
+                        costs_new=None) -> None:
+        """Re-extract every vertex-slice tile of each dirty pair shard
+        against the session's pinned slice bounds (one shard's tiles are
+        a unit: the designated base-term slice of any of its pairs must
+        agree across them), then re-upload just those tiles.
+        ``costs_new`` is ignored: tile costs are range-restricted per
+        vertex slice, so they are recomputed here."""
+        num_slices = self.mesh_shape[1]
+        bounds = self._vertex_bounds
+        terms = slice_pair_terms(space_new, bounds)
+        slice_costs = [range_postprune_pair_counts(
+            space_new, int(bounds[j]), int(bounds[j + 1]))
+            for j in range(num_slices)]
+        tiles = []
+        for s in dirty:
+            ids = np.searchsorted(key_all_new, self._shard_keys[s])
+            load = 0
+            for j in range(num_slices):
+                t = s * num_slices + j
+                sh = extract_shard(
+                    space_new, ids, index=t, costs=slice_costs[j],
+                    vertex_range=(int(bounds[j]), int(bounds[j + 1])),
+                    pair_term=terms[j])
+                self._shards[t] = sh
+                self._keys[t] = sh.keys
+                load += sh.items
+                tiles.append(t)
+            self._load[s] = load
+        self._upload_shards(tiles)

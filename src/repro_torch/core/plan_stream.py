@@ -42,10 +42,16 @@ from typing import Iterator
 import numpy as np
 
 from repro_torch.core.digraph import CompactDigraph
+from repro_torch.core.faults import FaultError
 from repro_torch.core.planner import (
     DESC_SEARCH_ITERS, DescriptorWindow, PairSpace, PlanOverflowError,
     descriptor_window, emit_items, max_pairs_per_window, num_desc_anchors,
     pad_and_pack, pair_space)
+
+
+class ProducerStalledError(FaultError):
+    """A shard's window producer made no progress past the watchdog
+    timeout and exhausted its restart budget."""
 
 
 @dataclass(frozen=True)
@@ -390,52 +396,100 @@ class ShardStreamPipeline:
 
     One daemon thread per shard runs that shard's ``source`` generator
     (descriptor-window packing or item emission — numpy host work only;
-    every upload and launch stays on the consuming thread) into a
-    private bounded queue of ``depth`` windows, so window k+1's
-    generation overlaps window k's upload + device compute and no
-    shard's production ever waits on another's.  ``depth=2``
-    double-buffers: one window in flight to the device, one pre-built
-    behind it.
+    every upload and launch stays on the consuming thread, and so does
+    every CUDA stream) into a private bounded queue of ``depth`` windows,
+    so window k+1's generation overlaps window k's upload + device
+    compute and no shard's production ever waits on another's.  ``depth=2`` double-buffers: one
+    window in flight to the device, one pre-built behind it.
 
     Iterating the pipeline yields ``(shard, window)`` in round-robin
     order over whichever shards have a window ready — a fast shard is
     never held back by a slow one (no barrier); drained shards (their
-    ``_STREAM_DONE`` sentinel consumed) leave the rotation immediately.
-    When *no* live shard has a window ready the consumer blocks on the
-    first live queue and counts a **stall** (producer-bound moments,
-    surfaced as ``EngineStats.stall_steps``).  A producer's exception
-    re-raises in the consumer; :meth:`close` unblocks and joins the
-    threads (the pipeline is a context manager).
+    ``_STREAM_DONE`` sentinel consumed) leave the rotation immediately
+    and are never polled again, so exhausted or empty-shard streams
+    cost the consumer nothing (the engine additionally never opens a
+    stream for a shard with zero windows).  When *no* live shard has a
+    window ready the consumer blocks on the first live queue and counts
+    a **stall** (producer-bound moments, surfaced as
+    ``EngineStats.stall_steps``).  Producer exceptions re-raise in the
+    consumer; :meth:`close` unblocks and joins the threads (the engine
+    closes in a ``finally``).
 
     ``batch`` (optional) is a :class:`WindowBatcher`: each source is
-    wrapped so its producer thread coalesces up to the batcher's current
-    ``k`` windows into one fixed-shape megabatch per queue item, and the
-    pipeline feeds the batcher its adaptive signals — consumer stalls
-    call :meth:`WindowBatcher.shrink` (only once something has been
-    consumed, so startup latency is not mistaken for producer
-    starvation) and producer backlog (a put finding its queue full)
-    calls :meth:`WindowBatcher.grow`, once per blocked window.
+    wrapped so its producer thread coalesces up to the batcher's
+    current ``k`` windows into one fixed-shape megabatch per queue
+    item, and the pipeline feeds the batcher its adaptive signals —
+    consumer stalls call :meth:`WindowBatcher.shrink` (only once
+    something has been consumed, so startup latency is not mistaken for
+    producer starvation) and producer backlog (a put finding its queue
+    full) calls :meth:`WindowBatcher.grow`, once per blocked window.
+
+    **Fault tolerance** (all optional, all off by default):
+
+    * ``restart`` — a factory ``restart(slot, skip) -> source`` building
+      a fresh window source for ``slot`` that skips its first ``skip``
+      raw windows.  With it, a producer that *raises* retries in place:
+      the thread rebuilds its source from the number of windows already
+      landed on the queue (the authoritative progress record — windows
+      put are never regenerated, windows lost mid-generation always
+      are) and resumes, up to ``max_retries`` attempts with exponential
+      ``backoff``; the budget exhausted, the exception surfaces to the
+      consumer as before.  Regeneration is pure host numpy from the
+      same immutable pair space, so a restarted stream is bit-identical
+      to an uninterrupted one.
+    * ``watchdog`` — a stall timeout in seconds.  A monitor thread
+      watches every live producer; one whose queue is *empty* and whose
+      put-count has not advanced for ``watchdog`` seconds is declared
+      hung, its attempt is cancelled, and a fresh thread resumes from
+      the same put-count (``watchdog_fires`` counts these).  The
+      watchdog joins no thread: a hung attempt is left to end on its
+      own (it holds no CUDA state) and is reaped by :meth:`close`.  Cancelled
+      attempts can never land a late window: puts and cancellation are
+      serialized under one lock, and a cancelled attempt re-checks its
+      own cancel event under that lock before every put.
+
+    The pipeline is a context manager; ``__exit__`` calls
+    :meth:`close`, so producer threads are reaped on exceptions and
+    KeyboardInterrupt, not just on the engine's explicit ``finally``.
     """
 
     _POLL = 0.05
 
-    def __init__(self, sources, depth: int = 2, batch=None):
+    def __init__(self, sources, depth: int = 2, batch=None, *,
+                 restart=None, watchdog: float | None = None,
+                 max_retries: int = 2, backoff: float = 0.01):
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
+        if max_retries < 0:
+            raise ValueError(f"max_retries must be >= 0, got {max_retries}")
         self.depth = int(depth)
         self.batch = batch
         self.stalls = 0
+        self.producer_retries = 0
+        self.watchdog_fires = 0
         self._consumed = 0
         self._stop = threading.Event()
+        self._restart = restart
+        self._watchdog = watchdog
+        self._max_retries = int(max_retries)
+        self._backoff = float(backoff)
         sources = list(sources)
-        self._live = set(range(len(sources)))
-        self._queues = [queue.Queue(maxsize=self.depth) for _ in sources]
+        n = len(sources)
+        self._live = set(range(n))
+        self._queues = [queue.Queue(maxsize=self.depth) for _ in range(n)]
+        #: serializes producer puts against watchdog cancellation so a
+        #: cancelled attempt can never land a late (duplicate) window
+        self._lock = threading.Lock()
+        #: raw windows successfully landed per slot, across all attempts
+        self._puts = [0] * n
+        #: restart attempts consumed per slot (error + watchdog combined)
+        self._attempts = [0] * n
+        self._cancels: list = [threading.Event() for _ in range(n)]
         self._threads = []
         for s, src in enumerate(sources):
-            if batch is not None:
-                src = batch.wrap(src)
-            t = threading.Thread(target=self._produce,
-                                 args=(self._queues[s], src), daemon=True)
+            self._spawn(s, src, self._cancels[s])
+        if watchdog is not None:
+            t = threading.Thread(target=self._watch, daemon=True)
             t.start()
             self._threads.append(t)
 
@@ -445,20 +499,49 @@ class ShardStreamPipeline:
     def __exit__(self, exc_type, exc, tb) -> None:
         self.close()
 
+    def _spawn(self, slot: int, source, cancel) -> None:
+        if self.batch is not None:
+            source = self.batch.wrap(source)
+        t = threading.Thread(target=self._produce,
+                             args=(slot, self._queues[slot], source, cancel),
+                             daemon=True)
+        t.start()
+        self._threads.append(t)
+
+    def _make_source(self, slot: int, skip: int):
+        src = self._restart(slot, skip)
+        return self.batch.wrap(src) if self.batch is not None else src
+
     def _offer(self, q: queue.Queue, item) -> bool:
         """Stop-aware put: lands ``item`` or gives up once :meth:`close`
         has been called (the consumer is gone — nobody will ever drain a
         full queue, so an unconditional put would strand the thread)."""
-        backlogged = False
         while not self._stop.is_set():
             try:
-                q.put_nowait(item)
+                q.put(item, timeout=self._POLL)
                 return True
             except queue.Full:
-                pass
-            if not backlogged and self.batch is not None \
-                    and item is not _STREAM_DONE \
-                    and not isinstance(item, BaseException):
+                continue
+        return False
+
+    def _put_window(self, slot: int, q: queue.Queue, window,
+                    cancel) -> bool:
+        """Land one window under the put/cancel lock; ``False`` once this
+        attempt is stopped or cancelled (the window is then discarded —
+        its replacement attempt will regenerate it)."""
+        count = window[1] if self.batch is not None else 1
+        backlogged = False
+        while not (self._stop.is_set() or cancel.is_set()):
+            with self._lock:
+                if cancel.is_set():
+                    return False
+                try:
+                    q.put_nowait(window)
+                    self._puts[slot] += count
+                    return True
+                except queue.Full:
+                    pass
+            if not backlogged and self.batch is not None:
                 # consumer behind: one grow signal per blocked window,
                 # not per retry
                 self.batch.grow()
@@ -466,16 +549,75 @@ class ShardStreamPipeline:
             time.sleep(0.002)
         return False
 
-    def _produce(self, q: queue.Queue, source) -> None:
-        try:
-            for window in source:
-                if not self._offer(q, window):
+    def _produce(self, slot: int, q: queue.Queue, source, cancel) -> None:
+        while True:
+            try:
+                for window in source:
+                    if not self._put_window(slot, q, window, cancel):
+                        return
+            except BaseException as exc:
+                if (self._restart is None or self._stop.is_set()
+                        or cancel.is_set()
+                        or self._attempts[slot] >= self._max_retries):
+                    # out of budget (or no restart factory): surface to
+                    # the consumer, as before
+                    self._offer(q, exc)
                     return
-        except BaseException as exc:
-            # surfaces in the consumer, which re-raises it
-            self._offer(q, exc)
-            return
+                self._attempts[slot] += 1
+                self.producer_retries += 1
+                time.sleep(self._backoff * 2 ** (self._attempts[slot] - 1))
+                source = self._make_source(slot, self._puts[slot])
+                continue
+            break
         self._offer(q, _STREAM_DONE)
+
+    def _watch(self) -> None:
+        """Watchdog: restart producers whose queue is empty and whose
+        put-count is frozen past the timeout.  An empty queue rules out
+        a producer blocked on a legitimately full queue (that is
+        consumer-bound, not a stall), so a frozen count really means the
+        generation itself is hung."""
+        n = len(self._queues)
+        seen = list(self._puts)
+        since = [time.monotonic()] * n
+        poll = min(self._watchdog / 4.0, self._POLL) or self._POLL
+        while not self._stop.wait(poll):
+            now = time.monotonic()
+            for s in list(self._live):
+                fresh = None
+                with self._lock:
+                    if self._puts[s] != seen[s] or not self._queues[s].empty():
+                        seen[s] = self._puts[s]
+                        since[s] = now
+                        continue
+                    if now - since[s] < self._watchdog:
+                        continue
+                    # hung: cancel this attempt under the lock (no put
+                    # can interleave) and snapshot the resume point
+                    self._cancels[s].set()
+                    skip = self._puts[s]
+                    since[s] = now
+                    self.watchdog_fires += 1
+                    if (self._restart is None
+                            or self._attempts[s] >= self._max_retries):
+                        fresh = False
+                    else:
+                        self._attempts[s] += 1
+                        fresh = True
+                if fresh is False:
+                    self._offer(self._queues[s], ProducerStalledError(
+                        f"shard {s} producer made no progress for "
+                        f"{self._watchdog}s and exhausted its "
+                        f"{self._max_retries} restarts"))
+                elif fresh:
+                    cancel = threading.Event()
+                    self._cancels[s] = cancel
+                    try:
+                        src = self._restart(s, skip)
+                    except BaseException as exc:
+                        self._offer(self._queues[s], exc)
+                        continue
+                    self._spawn(s, src, cancel)
 
     def _resolve(self, item, s: int):
         if item is _STREAM_DONE:
@@ -512,9 +654,14 @@ class ShardStreamPipeline:
 
     def close(self) -> None:
         """Stop the producers, drain the queues, and join the threads
-        (idempotent); safe mid-iteration.  Draining frees a producer
-        blocked on a full queue at once, so the join reaps every
-        thread."""
+        (idempotent); safe mid-iteration.
+
+        Draining matters: a producer blocked on a full queue — including
+        one trying to land its terminal exception or ``_STREAM_DONE``
+        sentinel — frees up immediately instead of spinning out its stop
+        timeout, and the join below then reaps every thread even when a
+        producer raised after the consumer stopped iterating.
+        """
         self._stop.set()
         for q in self._queues:
             while True:

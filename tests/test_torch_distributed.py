@@ -424,10 +424,16 @@ def test_rejects_bad_options():
     g = graph("pl70")
     with pytest.raises(ValueError):
         eng.run_plan(rt.build_plan(g, pad_to=2))
+    # sessions of multi-device engines open (tests/test_torch_multidevice_
+    # session.py holds them to the reference); bad session options raise
+    assert isinstance(eng.session(g), rt.PartitionedEngineSession)
+    assert isinstance(rt.CensusEngine(devices=cpu2).session(g),
+                      rt.EngineSession)
     with pytest.raises(ValueError):
-        eng.session(g)
+        eng.session(g, auto_rebalance_threshold=0.5)
     with pytest.raises(ValueError):
-        rt.CensusEngine(devices=cpu2).session(g)
+        rt.CensusEngine(devices=cpu2).session(
+            g, auto_rebalance_threshold=1.2)
     with pytest.raises(ValueError):
         rt.CensusEngine(devices=cpu2).run(
             g, part=partition.partition_graph(g, num_shards=2))

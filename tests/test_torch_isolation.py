@@ -21,7 +21,8 @@ FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|,|$)",
 def test_import_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.kernels.ops, "
             "repro_torch.convert, repro_torch.core.distributed, "
-            "repro_torch.core.partition\n"
+            "repro_torch.core.partition, repro_torch.core.faults, "
+            "repro_torch.core.plan_stream, repro_torch.core.engine\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
             "'repro') or m.startswith(('jax.', 'jaxlib.', 'repro.')))\n"
             "print(bad)\n")
@@ -40,6 +41,7 @@ def test_port_sources_exist():
                 "core/plan_stream.py", "core/census.py", "core/engine.py",
                 "core/incremental.py", "core/pair_index.py",
                 "core/partition.py", "core/distributed.py",
+                "core/faults.py", "core/__init__.py",
                 "kernels/build.py", "kernels/census_fused.py",
                 "kernels/tricode_hist.py", "kernels/pair_codes.py",
                 "kernels/ref.py",

@@ -806,3 +806,149 @@ def test_default_devices_share_one_card(cuda):
     assert [d.device for d in devs] == [torch.device("cuda", i % count)
                                         for i in range(4)]
     assert len({d.stream.cuda_stream for d in devs}) == 4
+
+
+def faulty_plan(k=4, seed=3):
+    return rt.FaultPlan.seeded(seed, k, producer_errors=1,
+                               dispatch_errors=1, retire_devices=1,
+                               poisons=1)
+
+
+@pytest.mark.parametrize("emit", ["device", "host"])
+def test_faulted_async_run_on_card(cuda, emit):
+    """A seeded faulty async run over 4 logical devices on the card: the
+    fault-free census, a retired lane, and a kernel launch for every
+    dispatch, retries included (a poisoned window launches again)."""
+    g = rt.paper_workload("orkut", 600, 12.0, seed=4)
+    want = rt.CensusEngine(device="cpu", backend="torch").run(
+        g, max_items=3000)
+    ops.reset_launch_counts()
+    eng = rt.CensusEngine(devices=rt.default_devices(4), backend="fused",
+                          partition=True, emit=emit, faults=faulty_plan(),
+                          retry_backoff=0.0)
+    got = eng.run(g, max_items=3000)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got, want)
+    st = eng.stats
+    assert st.failovers == 1 and len(st.retired_devices) == 1
+    assert st.retries >= 1
+    kernel = (ops.fused_census_desc_partials_batch if emit == "device"
+              else ops.fused_census_partials)
+    assert kernel.launches >= st.dispatches_total > 0
+    # nothing ran on another kernel or on the plain version
+    assert ops.fused_census_desc_partials.launches == 0
+
+
+def test_every_lane_retired_raises_on_card(cuda):
+    g = rt.paper_workload("orkut", 300, 8.0, seed=1)
+    plan = rt.FaultPlan(faults=[
+        rt.Fault("dispatch", "error", device=d, occurrence=0,
+                 persistent=True) for d in range(2)])
+    eng = rt.CensusEngine(devices=rt.default_devices(2), partition=True,
+                          faults=plan, retry_backoff=0.0)
+    with pytest.raises(rt.FaultError, match="every device"):
+        eng.run(g, max_items=1000)
+
+
+def test_checkpoint_resume_on_card(cuda, tmp_path):
+    """A checkpointed run on the card stopped after half its windows and
+    resumed: the uninterrupted census, the journal's windows skipped."""
+    g = rt.paper_workload("orkut", 600, 12.0, seed=4)
+    want = rt.census_batagelj_mrvar(g)
+    ck = str(tmp_path / "run.ckpt")
+    eng = rt.CensusEngine(devices=rt.default_devices(4), partition=True)
+
+    def stop(done, total, num):
+        if done + 1 >= total // 2:
+            raise KeyboardInterrupt
+
+    with pytest.raises(KeyboardInterrupt):
+        eng.run(g, max_items=3000, checkpoint=ck, progress=stop)
+    torch.cuda.synchronize()
+    info = rt.CensusEngine.compact_checkpoint(ck)
+    assert info["compacted_bytes"] <= info["bytes"]
+    ops.reset_launch_counts()
+    got = eng.resume(g, ck, max_items=3000)
+    np.testing.assert_array_equal(got, want)
+    st = eng.stats
+    assert st.resumed_windows >= 1
+    assert ops.fused_census_desc_partials_batch.launches == \
+        st.dispatches_total > 0
+
+
+def drive_sessions(sessions, g, stream, kernel):
+    """Census then each delta on every session: equal censuses and
+    stats, the card's session launching once per dispatch (a replicated
+    session once per dispatch on each lane)."""
+    gg = g
+    for k, delta in enumerate([None] + stream):
+        before = kernel.launches
+        if delta is None:
+            got = [s.census() for s in sessions]
+        else:
+            got = [s.update(*delta) for s in sessions]
+            gg, _ = rt.apply_delta(gg, *delta)
+        st = sessions[0].stats
+        lanes = 1 if st.partitioned else st.ndev
+        assert kernel.launches - before == st.chunks * lanes
+        np.testing.assert_array_equal(got[0], got[1])
+        np.testing.assert_array_equal(got[0], rt.census_batagelj_mrvar(gg))
+        for field in ("chunks", "chunk_items", "items", "full_items",
+                      "affected_pairs", "shard_items", "desc_shape",
+                      "plan_upload_bytes", "graph_resident_bytes"):
+            assert getattr(sessions[0].stats, field) == \
+                getattr(sessions[1].stats, field), (k, field)
+        if hasattr(sessions[0], "load_max_over_mean"):
+            assert sessions[0].load_max_over_mean == \
+                sessions[1].load_max_over_mean
+    assert sessions[0].stats.chunks > 0
+
+
+@pytest.mark.parametrize("layout", ["1d", "2d", "replicated"])
+@pytest.mark.parametrize("emit", ["device", "host"])
+def test_multidevice_session_on_card_matches_cpu(cuda, layout, emit):
+    """Partitioned (1D over 4, 2D (2, 2)) and replicated (over 2)
+    sessions on the card against the same sessions on the CPU."""
+    g = rt.paper_workload("orkut", 160, 8.0, seed=5)
+    kw, k = {"1d": (dict(partition=True), 4),
+             "2d": (dict(partition_2d=(2, 2)), 4),
+             "replicated": (dict(), 2)}[layout]
+    sessions = [rt.CensusEngine(devices=devices, backend="fused",
+                                emit=emit, **kw).session(
+        g, max_items=401, emit=emit)
+        for devices in (rt.default_devices(k), rt.default_devices(k, "cpu"))]
+    kernel = (ops.fused_census_desc_partials if emit == "device"
+              else ops.fused_census_partials)
+    drive_sessions(sessions, g, session_stream(g, seed=3), kernel)
+
+
+@pytest.mark.parametrize("max_items", [1, 2, 3, 4, 5])
+def test_2d_session_tiles_tiny_budgets_on_card(cuda, max_items):
+    """2D session tiles whose pairs keep one item, at budgets of 1-5
+    items, on the card against the CPU."""
+    k = 12
+    leaves = np.arange(1, k + 1)
+    g = rt.from_edges(np.concatenate([np.zeros(k, np.int64), leaves]),
+                      np.concatenate([leaves, leaves + k]), n=2 * k + 1)
+    sessions = [rt.CensusEngine(devices=devices, backend="fused",
+                                partition_2d=(2, 2)).session(
+        g, max_items=max_items)
+        for devices in (rt.default_devices(4), rt.default_devices(4, "cpu"))]
+    stream = [([0, 3], [13, 20], [2], [14])]
+    drive_sessions(sessions, g, stream, ops.fused_census_desc_partials)
+
+
+def test_session_faults_on_card(cuda):
+    """A partitioned session on the card retries an injected error and a
+    poisoned window (which launches again) to the CPU's census."""
+    g = rt.paper_workload("orkut", 160, 8.0, seed=5)
+    plan = rt.FaultPlan(faults=[
+        rt.Fault("dispatch", "error", occurrence=1),
+        rt.Fault("dispatch", "poison", occurrence=2)])
+    s = rt.CensusEngine(devices=rt.default_devices(4), partition=True,
+                        faults=plan, retry_backoff=0.0).session(
+        g, max_items=401)
+    before = ops.fused_census_desc_partials.launches
+    np.testing.assert_array_equal(s.census(), rt.census_batagelj_mrvar(g))
+    assert s.retries >= 2
+    assert ops.fused_census_desc_partials.launches - before > s.stats.chunks

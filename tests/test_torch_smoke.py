@@ -37,6 +37,14 @@ def test_rehearsal_runs_every_phase_and_reports_nothing():
                   "partitioned 1d lockstep orient=none",
                   "partitioned 2d (2, 2) async orient=none",
                   "partitioned replicated x2 orient=none",
+                  "faults 1d async orient=none",
+                  "checkpoint 1d async orient=none",
+                  "partitioned session 1d x4: opened",
+                  "partitioned session 1d x4 update k=10:",
+                  "partitioned session 1d x4 update k=100:",
+                  "partitioned session 2d (2, 2) update k=10:",
+                  "replicated session x2",
+                  "faults and multi-device sessions phase",
                   "pair_codes entry point",
                   "oracle phase: 72 runs and 36 sessions",
                   "rehearsal complete"):
