@@ -64,11 +64,24 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    deltas of step 5), a ``PartitionedEngineSession2D`` (2, 2) update
    from the 1D session's checkpointed census, and a replicated session
    over 2 lanes, each held to step 5's from-scratch censuses;
-8. drives the entry point ``pair_codes`` once on (B, 128) tiles cut from
+8. runs the temporal monitor (``TriadMonitor``) at full width on the
+   monitor-backbone stream (2,000,000 hosts: a 3M-arc service backbone
+   in every 4M-edge window, 1 slot in 50 an ephemeral peer flow): one
+   full window and 8 incremental slides of 200,000 edges under
+   fused/device, each window held to a monitor that recounts every
+   window from scratch and to C(n, 3), the slides' items at least 2x
+   fewer than their ``full_items``; then ``orient="degree"`` for one
+   window and 3 slides and the partitioned monitor over
+   ``default_devices(4)`` for one window and 1 slide; then the ``network_monitor_torch`` example's scenario under
+   fused/device, fused/host, hist and without the pair-space index,
+   each equal to the plain torch monitor on the CPU in censuses,
+   proportions and alarms, and once more under the example's fault
+   plan (a degraded window carried forward, the rest equal);
+9. drives the entry point ``pair_codes`` once on (B, 128) tiles cut from
    the patents-size graph (row pairs of window 0);
-9. runs the small oracle workloads through every backend × orient × emit
-   against the serial Batagelj–Mrvar census, as one-shot runs and as
-   sessions over a short delta stream.
+10. runs the small oracle workloads through every backend × orient × emit
+    against the serial Batagelj–Mrvar census, as one-shot runs and as
+    sessions over a short delta stream.
 
 Any mismatch raises, so the exit code is non-zero.  The line before the
 last is the per-kernel JSON record; the last line is
@@ -1677,6 +1690,291 @@ def faults_sessions_phase(g, device, max_items: int, part, census_none,
     return dict(batch_launches=batch_launches, desc_launches=desc_launches)
 
 
+#: the monitor-backbone stream (the JAX package's benchmark stream of
+#: its indexed-planner gate at 20x): a service backbone of 3M arcs among
+#: 400k servers cycled through every window, and 1 stream slot in 50 an
+#: ephemeral flow between two of 1.6M peers, churning on every slide
+MONITOR = dict(n_servers=400_000, n_peers=1_600_000,
+               backbone_arcs=3_000_000, window=4_000_000, stride=200_000,
+               slides=8, eph_every=50)
+#: slides of the smaller-depth monitors: orient="degree", and the
+#: partitioned one (cut to one slide: the smoke ran past 420 s on the card)
+MONITOR_DEGREE_SLIDES = 3
+MONITOR_PARTITIONED_SLIDES = 1
+#: the network_monitor_torch example's scenario as the phase runs it
+EXAMPLE_MONITOR = dict(window=1200, windows=30, stride=600)
+#: the example's --inject-faults seed the degradation run takes
+EXAMPLE_FAULT_SEED = 0
+
+
+def monitor_stream(rng, n_servers, n_peers, backbone_arcs, length,
+                   eph_every):
+    """Monitoring workload: a persistent service backbone (a fixed server
+    mesh cycled through the stream, so it sits in every window and never
+    churns) with every ``eph_every``-th stream slot an ephemeral
+    peer-to-peer flow — the backbone-dominated regime where the pair
+    space is large but the per-slide delta stays small.  Returns
+    ``(src, dst, n)``."""
+    n = n_servers + n_peers
+    bs = rng.integers(0, n_servers, backbone_arcs)
+    bd = (bs + 1 + rng.integers(0, n_servers - 1, backbone_arcs)) \
+        % n_servers
+    src = np.empty(length, np.int64)
+    dst = np.empty(length, np.int64)
+    bb = np.arange(length) % eph_every != 0
+    idx = (np.cumsum(bb) - 1)[bb] % backbone_arcs
+    src[bb], dst[bb] = bs[idx], bd[idx]
+    n_peer_slots = int((~bb).sum())
+    src[~bb] = n_servers + rng.integers(0, n_peers, n_peer_slots)
+    dst[~bb] = n_servers + rng.integers(0, n_peers, n_peer_slots)
+    return src, dst, n
+
+
+def load_example(name: str):
+    """An example script of the repo, imported by path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def monitor_phase(device, max_items: int, cfg: dict, example: dict
+                  ) -> dict:
+    """The temporal monitor on the card.
+
+    Full width: ``TriadMonitor(backend="fused", emit="device",
+    orient="none", index=True)`` over the monitor-backbone stream, one
+    full window then ``cfg["slides"]`` incremental slides, each window
+    held to a second monitor that recounts every window from scratch
+    (``incremental=False``) and to C(n, 3), the from-scratch censuses of
+    window 0 and the first slide held to the plain torch monitor on the
+    card (no kernel launched), the slides' ``full_items`` at
+    least twice their ``items``, and each window's desc launches equal
+    to its dispatches; then ``orient="degree"`` for one window and
+    ``MONITOR_DEGREE_SLIDES`` slides and the partitioned monitor over
+    ``default_devices(4)`` for one window and
+    ``MONITOR_PARTITIONED_SLIDES``, held to the same windows' censuses.
+    The example's scenario runs under fused/device, fused/host and hist
+    (and fused/device without the pair-space index), each equal to the
+    plain torch monitor on the CPU in censuses, proportions and alarms,
+    with an alarm window on the injected scans; under the example's
+    fault plan a degraded window carries its predecessor forward and
+    every other window equals the fault-free run.  Launch counts start
+    from 0 before each run; returns each kernel's sum over the phase."""
+    import torch
+    import repro_torch as rt
+    from repro_torch.kernels import ops
+    cuda = device.type == "cuda"
+    launches = {"fused_census_desc_partials": 0,
+                "fused_census_partials": 0, "tricode_histogram": 0}
+
+    def counted():
+        counts = {fn.__name__: fn.launches for fn in (
+            ops.fused_census_desc_partials, ops.fused_census_partials,
+            ops.tricode_histogram)}
+        require(ops.fused_census_desc_partials_batch.launches == 0,
+                "a monitor launched the megastep")
+        for name, count in counts.items():
+            launches[name] += count
+        return counts
+
+    w, s = cfg["window"], cfg["stride"]
+    length = w + cfg["slides"] * s
+    t0 = time.perf_counter()
+    src, dst, n = monitor_stream(
+        np.random.default_rng(0), cfg["n_servers"], cfg["n_peers"],
+        cfg["backbone_arcs"], length, cfg["eph_every"])
+    total = n * (n - 1) * (n - 2) // 6
+    made_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g0 = rt.from_edges(src[:w], dst[:w], n=n)
+    log(f"monitor-backbone stream: n {n}, {length} edges made in "
+        f"{made_s:.3f} s; window {w} edges, stride {s}; window 0 has "
+        f"{g0.num_arcs} arcs, {g0.packed.shape[0]} CSR entries (from_edges "
+        f"{time.perf_counter() - t0:.3f} s), W0 "
+        f"{rt.pair_space(g0).num_items_preprune}")
+    del g0
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+
+    def feed(mon, label, slides, held=None, traced=()):
+        """One full window then ``slides`` slides through ``mon``; each
+        window timed to its census (a host array: the card has landed)
+        and its desc launches held to its dispatches.  Each ``(first,
+        stop)`` range of windows in ``traced`` runs under one
+        ``torch.profiler`` session, for the device's busy share of those
+        windows' walls.  Returns per-window rows."""
+        rows = []
+        spans = [(0, w)] + [(w + k * s, w + (k + 1) * s)
+                            for k in range(slides)]
+        starts = dict(traced)
+        prof, first, stop, traced_wall = None, 0, 0, 0.0
+        for k, (lo, hi) in enumerate(spans):
+            before = ops.fused_census_desc_partials.launches
+            if k in starts:
+                prof = torch.profiler.profile(activities=activities)
+                first, stop, traced_wall = k, starts[k], 0.0
+                prof.start()
+            t0 = time.perf_counter()
+            out = mon.observe(src[lo:hi], dst[lo:hi])
+            wall = time.perf_counter() - t0
+            count = ops.fused_census_desc_partials.launches - before
+            require(out.shape == (1, 16), f"{label}: window {k} emitted "
+                    f"{out.shape[0]} censuses")
+            census = out[0]
+            st = mon.window_stats[-1]
+            require(int(census.sum()) == total,
+                    f"{label} window {k}: census sums to "
+                    f"{int(census.sum())}, not C(n,3)={total}")
+            fused = cuda and mon.engine.backend == "fused"
+            require(count == (st.chunks if fused else 0),
+                    f"{label} window {k}: desc kernel launched {count} "
+                    f"times for {st.chunks} dispatches")
+            if held is not None:
+                require((census == held[k]).all(),
+                        f"{label} window {k}: {census.tolist()} != "
+                        f"from-scratch {held[k].tolist()}")
+            rows.append(dict(census=census, wall_s=wall, items=st.items,
+                             full_items=st.full_items,
+                             affected=st.affected_pairs, chunks=st.chunks,
+                             launches=count, stats=st))
+            extra = ""
+            if st.partitioned:
+                extra = (f", shard_items {st.shard_items} max/mean "
+                         f"{st.shard_max_over_mean:.4f}, resident "
+                         f"{st.graph_resident_bytes} B vs replicated "
+                         f"{st.graph_replicated_bytes} B")
+            if prof is not None:
+                traced_wall += wall
+            if prof is not None and k + 1 == stop:
+                if cuda:
+                    torch.cuda.synchronize()
+                prof.stop()
+                split = trace_split(prof, device)
+                prof = None
+                if cuda:
+                    busy = split["busy_ms"] / 1e3 / traced_wall
+                    extra += (f"; traced windows {first}-{k}: desc kernel "
+                              f"{split['kernel_launches']} launches "
+                              f"{split['kernel_ms']:.4f} ms, device busy "
+                              f"{split['busy_ms']:.4f} ms = {busy:.4%} of "
+                              f"their {traced_wall:.4f} s, idle "
+                              f"{1 - busy:.4%}")
+            log(f"{label} window {k}: items {st.items} of full_items "
+                f"{st.full_items} ({st.items / max(st.full_items, 1):.4%})"
+                f", affected pairs {st.affected_pairs}, dispatches "
+                f"{st.chunks}, desc launches {count}, window wall "
+                f"{wall:.4f} s (host pair {st.host_pair_seconds:.4f} s, "
+                f"merge {st.host_merge_seconds:.4f} s, emit "
+                f"{st.host_emit_seconds:.4f} s){extra}")
+        return rows
+
+    def monitor(**kw):
+        return rt.TriadMonitor(n, window=w, stride=s, history=5,
+                               max_items=max_items, **kw)
+
+    # the from-scratch recount first: it holds every later run
+    ops.reset_launch_counts()
+    full = feed(monitor(device=device, incremental=False),
+                "monitor-backbone full", cfg["slides"])
+    counted()
+    held = [r["census"] for r in full]
+    # the plain torch version on the card, window 0 and one slide: holds
+    # the fused desc kernel at this graph's own windows
+    ops.reset_launch_counts()
+    feed(monitor(device=device, backend="torch"),
+         "monitor-backbone plain torch", 1, held)
+    require(all(count == 0 for count in counted().values()),
+            "the plain torch monitor launched a kernel")
+    ops.reset_launch_counts()
+    inc = feed(monitor(device=device, emit="device", index=True),
+               "monitor-backbone incremental", cfg["slides"], held,
+               traced=((0, 1), (1, 3)))
+    counted()
+    items = sum(r["items"] for r in inc[1:])
+    full_items = sum(r["full_items"] for r in inc[1:])
+    require(full_items >= 2 * items,
+            f"monitor-backbone: slides processed {items} items of "
+            f"{full_items} full — less than a 2x reduction")
+    inc_wall = sum(r["wall_s"] for r in inc[1:])
+    full_wall = sum(r["wall_s"] for r in full[1:])
+    log(f"monitor-backbone totals: {cfg['slides']} slides, incremental "
+        f"wall {inc_wall:.4f} s vs full-recompute wall {full_wall:.4f} s "
+        f"({full_wall / inc_wall:.3f}x); items {items} vs {full_items} "
+        f"({full_items / max(items, 1):.2f}x item reduction); first "
+        f"window {inc[0]['wall_s']:.4f} s vs {full[0]['wall_s']:.4f} s")
+
+    ops.reset_launch_counts()
+    feed(monitor(device=device, orient="degree"),
+         "monitor-backbone orient=degree", MONITOR_DEGREE_SLIDES, held)
+    counted()
+    devices = rt.default_devices(4, None if cuda else "cpu")
+    ops.reset_launch_counts()
+    feed(monitor(devices=devices, partition=True),
+         "monitor-backbone partitioned x4", MONITOR_PARTITIONED_SLIDES,
+         held)
+    counted()
+
+    # the example's scenario through the example's own entry point
+    example_mod = load_example("network_monitor_torch")
+    ref, spans = example_mod.run(backend="torch", device="cpu", **example)
+    scans = max(example_mod.ATTACK_WINDOWS) < example["windows"]
+    runs = {}
+    for backend, emit, index in (("fused", "device", True),
+                                 ("fused", "host", True),
+                                 ("hist", None, True),
+                                 ("fused", "device", False)):
+        label = f"example {backend}/{emit or 'default'}" + (
+            "" if index else " no index")
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        mon, _ = example_mod.run(backend=backend, device=device, emit=emit,
+                                 index=index, **example)
+        wall = time.perf_counter() - t0
+        counts = counted()
+        require(np.array_equal(mon.censuses, ref.censuses)
+                and np.array_equal(mon.proportions(), ref.proportions())
+                and mon.alarms() == ref.alarms(),
+                f"{label}: censuses, proportions or alarms differ from "
+                f"the plain torch monitor on the CPU")
+        flagged, hit = example_mod.detected(mon, spans)
+        require(hit or not scans,
+                f"{label}: no alarm window on the injected scans "
+                f"(alarms at {sorted(flagged)})")
+        runs[label] = mon
+        log(f"{label}: {len(mon.window_stats)} windows in {wall:.3f} s, "
+            f"alarm windows {sorted(flagged)}, bursts hit {len(hit)}/"
+            f"{len(spans)}; launches {counts}; equal to the plain torch "
+            f"monitor on the CPU")
+    clean = runs["example fused/device"]
+    ops.reset_launch_counts()
+    mon, _ = example_mod.run(backend="fused", device=device,
+                             inject_faults=EXAMPLE_FAULT_SEED, **example)
+    counted()
+    bad = {d["window"] for d in mon.degraded}
+    require(bad, "fault plan: no degraded window")
+    require(mon._session.retries >= 1, "fault plan: no retried dispatch")
+    for t in range(clean.censuses.shape[0]):
+        want = (mon.censuses[t - 1] if t in bad else clean.censuses[t])
+        require(np.array_equal(mon.censuses[t], want),
+                f"fault plan: window {t} {mon.censuses[t].tolist()} != "
+                f"{want.tolist()}")
+        require((mon.window_stats[t] is None) == (t in bad),
+                f"fault plan: window {t} stats out of step")
+    log(f"example under --inject-faults {EXAMPLE_FAULT_SEED}: degraded "
+        f"windows {sorted(bad)} carried forward, retries "
+        f"{mon._session.retries}, every other window equal to the "
+        f"fault-free run")
+    if cuda:
+        for name, count in launches.items():
+            require(count > 0, f"the monitor phase never launched {name}")
+    log(f"temporal monitor phase: launches {launches}")
+    return launches
+
+
 def small_delta_stream(g, seed: int):
     """An empty delta, a deletion-heavy one and one growing a row past
     the largest degree, as (add_src, add_dst, del_src, del_dst)."""
@@ -1860,6 +2158,20 @@ def main(argv=None) -> int:
     records[0]["batch"]["fault_phase_launches"] = faulted["batch_launches"]
     records[0]["multidevice_session_launches"] = faulted["desc_launches"]
     phase_done("faults and multi-device sessions", t_start)
+
+    # the temporal monitor and the example's scenario: counts from 0 just
+    # before each monitor run, inside the phase
+    monitor_cfg, example_cfg = dict(MONITOR), dict(EXAMPLE_MONITOR)
+    if args.rehearse:
+        monitor_cfg.update(n_servers=200, n_peers=800, backbone_arcs=1_500,
+                           window=2_000, stride=100, slides=3)
+        example_cfg.update(windows=10)
+    monitored = monitor_phase(device, max_items, monitor_cfg, example_cfg)
+    for record, name in zip(records, ("fused_census_desc_partials",
+                                      "fused_census_partials",
+                                      "tricode_histogram")):
+        record["monitor_launches"] = monitored[name]
+    phase_done("temporal monitor", t_start)
 
     # the pair_codes entry point, on the kernel phase's tiles
     q, k, kc, want = codes_case

@@ -47,6 +47,13 @@ Public API::
     engine.stats.retries, engine.stats.failovers  # what recovery cost
     census = engine.resume(g, "run.ckpt", max_items=2**24)  # after a kill
 
+    # temporal monitor: sliding-window censuses of an edge stream, each
+    # slide a delta update of one resident session, with robust-z alarms
+    monitor = TriadMonitor(n_hosts, window=1200, stride=600, history=20)
+    monitor.observe(src, dst)                   # any batch sizes
+    monitor.censuses, monitor.alarms()          # (windows, 16); alarms
+    monitor.window_stats[-1].items              # items of full_items
+
 Backends map one-to-one onto ``repro``'s:
 
 ============  ================  =========================================
@@ -64,7 +71,8 @@ kernels are built from ``kernels/csrc`` by ``nvcc`` at first CUDA use.
 """
 
 from repro_torch.core.census import (
-    BACKENDS, assemble_census, assemble_counts, triad_census)
+    BACKENDS, assemble_census, assemble_counts, census_partials_desc_batch,
+    triad_census)
 from repro_torch.core.census_ref import (
     census_batagelj_mrvar, census_bruteforce, census_dict)
 from repro_torch.core.digraph import (
@@ -100,12 +108,15 @@ from repro_torch.core.planner import (
     base_for_pairs, build_plan, descriptor_window, emit_items,
     emit_items_for_pairs, iter_descriptor_windows, pack_items, pair_space,
     unpack_items)
+from repro_torch.core.temporal import (
+    SECURITY_PATTERN_INDICES, SECURITY_PATTERNS, TriadMonitor)
 from repro_torch.core.tricode import (
     FOLD_64_TO_16, NUM_CLASSES, TRIAD_NAMES, TRICODE_TO_CLASS)
 from repro_torch.kernels.ops import pair_codes
 
 __all__ = [
-    "BACKENDS", "assemble_census", "assemble_counts", "triad_census",
+    "BACKENDS", "assemble_census", "assemble_counts",
+    "census_partials_desc_batch", "triad_census",
     "census_batagelj_mrvar", "census_bruteforce", "census_dict",
     "CompactDigraph", "GraphDelta", "apply_delta", "canonical_pairs",
     "from_dense", "from_edges", "from_pairs", "to_dense",
@@ -132,6 +143,7 @@ __all__ = [
     "base_for_pairs", "build_plan", "descriptor_window", "emit_items",
     "emit_items_for_pairs", "iter_descriptor_windows", "pack_items",
     "pair_space", "unpack_items",
+    "SECURITY_PATTERN_INDICES", "SECURITY_PATTERNS", "TriadMonitor",
     "FOLD_64_TO_16", "NUM_CLASSES", "TRIAD_NAMES", "TRICODE_TO_CLASS",
     "pair_codes",
 ]

@@ -3,7 +3,8 @@ half (torch).  The public API is re-exported by :mod:`repro_torch`; this
 package exports what the JAX package's ``repro.core`` does, under the
 port's names (``default_devices`` for ``default_mesh``)."""
 
-from repro_torch.core.census import assemble_census, triad_census
+from repro_torch.core.census import (
+    assemble_census, census_partials_desc_batch, triad_census)
 from repro_torch.core.census_ref import (
     census_batagelj_mrvar, census_bruteforce, census_dict)
 from repro_torch.core.digraph import (
@@ -36,6 +37,8 @@ from repro_torch.core.planner import (
     base_for_pairs, build_plan, descriptor_window, emit_items,
     emit_items_for_pairs, iter_descriptor_windows, pack_items, pair_space,
     unpack_items)
+from repro_torch.core.temporal import (
+    SECURITY_PATTERN_INDICES, SECURITY_PATTERNS, TriadMonitor)
 from repro_torch.core.tricode import (
     FOLD_64_TO_16, NUM_CLASSES, TRIAD_NAMES, TRICODE_TO_CLASS)
 
@@ -60,10 +63,11 @@ __all__ = [
     "extract_shard", "lpt_assign", "lpt_assign_heap", "partition_graph",
     "partition_graph_2d", "replicated_graph_bytes", "vertex_slices",
     "shard_report",
-    "triad_census", "assemble_census",
+    "triad_census", "assemble_census", "census_partials_desc_batch",
     "triad_census_distributed", "triad_census_graph", "default_devices",
     "census_bruteforce", "census_batagelj_mrvar", "census_dict",
     "TRIAD_NAMES", "TRICODE_TO_CLASS", "FOLD_64_TO_16", "NUM_CLASSES",
     "scale_free_digraph", "paper_workload", "erdos_renyi_digraph",
-    "PAPER_WORKLOADS",
+    "PAPER_WORKLOADS", "TriadMonitor", "SECURITY_PATTERNS",
+    "SECURITY_PATTERN_INDICES",
 ]

@@ -155,10 +155,12 @@ def from_pairs(n: int, plo: np.ndarray, phi: np.ndarray, code: np.ndarray,
     deg = np.bincount(rows, minlength=n).astype(np.int64)
     indptr = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(deg, out=indptr[1:])
-    order = np.lexsort((nbrs, rows))
-    packed = ((nbrs[order] << 2) | codes[order]).astype(np.int64)
-    if packed.size and packed.max() >= 2**31:
+    if nbrs.size and nbrs.max() >= 2**29:
         raise ValueError("graph too large for int32 packing; need n < 2^29")
+    # entries in (row, neighbour) order: one sort of distinct int64 keys
+    # row << 31 | packed entry (a lexsort over the two columns costs ~5x)
+    key = np.sort((rows << 31) | (nbrs << 2) | codes)
+    packed = key & (2**31 - 1)
     return CompactDigraph(n=int(n), indptr=indptr,
                           packed=packed.astype(np.int32),
                           num_arcs=int(num_arcs))

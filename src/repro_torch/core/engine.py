@@ -615,6 +615,18 @@ class _Pipeline:
                 return r
         raise RuntimeError(f"all {ring} partials buffers are in flight")
 
+    def drain(self) -> None:
+        """Wait for every dispatch still in flight and free its ring slot,
+        dropping its partials: what a dispatch loop that raised a
+        :class:`FaultError` left behind, so the next loop on this pipeline
+        finds the ring free."""
+        if not self.cuda:
+            return
+        for r, busy in enumerate(self.busy):
+            if busy:
+                self.done[r].synchronize()
+                self.busy[r] = False
+
     def land(self, ticket) -> tuple[np.ndarray, np.ndarray]:
         """Wait for a submitted dispatch; its partials as int64 arrays,
         ``(rows, 64)`` and ``(rows, lanes)``."""
@@ -688,13 +700,22 @@ def _dispatch(pipes, launches, steps, landed=None, session=None
             landed(k, inter)
 
     pending = None
-    for k, buffers in enumerate(steps):
-        job = (dispatch(buffers), buffers)
+    try:
+        for k, buffers in enumerate(steps):
+            job = (dispatch(buffers), buffers)
+            if pending is not None:
+                land(k - 1, pending)
+            pending = job
         if pending is not None:
-            land(k - 1, pending)
-        pending = job
-    if pending is not None:
-        land(k, pending)
+            land(k, pending)
+    except FaultError:
+        # a step that failed past its budget leaves the step before it
+        # (or after it) in flight; a session that recovers from the fault
+        # must find every ring slot free.  Any other error surfaces as it
+        # is, with the ring left as it stood.
+        for pipe in pipes:
+            pipe.drain()
+        raise
     return hist_acc, inter_acc
 
 

@@ -572,6 +572,30 @@ class CensusPlan:
     base_asym: int
     base_mut: int
 
+    def balance_stats(self, num_shards: int) -> dict[str, float]:
+        """Work-imbalance metrics (paper Fig 9 utilization analogue): the
+        flat plan against pair-granular partitioning (what a naive
+        parallel-for over pairs would give on a power-law graph)."""
+        wp = self.item_pv.shape[0]
+        flat_max = -(-wp // num_shards) if wp else 0
+        flat_mean = wp / num_shards
+        _, _, item_pair, item_valid = unpack_items(self.item_sp,
+                                                   self.item_pv)
+        cost = np.bincount(item_pair[item_valid],
+                           minlength=self.num_pairs).astype(np.int64)
+        bounds = np.linspace(0, self.num_pairs, num_shards + 1).astype(int)
+        per = np.add.reduceat(cost, bounds[:-1]) if self.num_pairs else \
+            np.zeros(num_shards)
+        stats = {
+            "flat_max_over_mean":
+                flat_max / max(flat_mean, 1e-9) if wp else 1.0,
+            "pair_max_over_mean": float(per.max() / max(per.mean(), 1e-9))
+            if self.num_pairs else 1.0,
+            "items": int(self.num_items),
+            "pairs": int(self.num_pairs),
+        }
+        return stats
+
 
 def build_plan(g: CompactDigraph, pad_to: int = 1,
                prune_self: bool = True, orient: str = "none") -> CensusPlan:

@@ -79,6 +79,19 @@ def test_from_edges_and_canonical_pairs_match(seed):
                         ref_digraph.from_dense(dense), GRAPH_FIELDS)
 
 
+@pytest.mark.parametrize("seed", range(2))
+def test_from_edges_matches_on_wide_ids(seed):
+    """Rows sort on one int64 key (row << 31 | packed entry): equal to
+    the reference's two-column sort where ids use many bits."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, 2**20, 20_000)
+    dst = np.where(rng.random(20_000) < 0.5, src ^ 1,
+                   rng.integers(0, 2**20, 20_000))
+    assert_fields_equal(digraph.from_edges(src, dst, n=2**20),
+                        ref_digraph.from_edges(src, dst, n=2**20),
+                        GRAPH_FIELDS)
+
+
 @pytest.mark.parametrize("src, dst, n", [
     ([[0, 1], [2]], [[1, 2], [0]], None),     # ragged
     ([0.0, np.nan], [1.0, 2.0], None),         # non-finite

@@ -1,6 +1,9 @@
 """The port stands alone: importing it loads neither JAX nor the JAX
-package, and no module of it (or the GPU smoke script) imports them."""
+package, and no module of it (nor the GPU smoke script, nor the port's
+example scripts) imports them.  It exports every name the JAX package's
+``repro.core`` does, under the port's names."""
 
+import json
 import os
 import re
 import subprocess
@@ -11,7 +14,11 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + [
+    ROOT / "examples" / f"{name}_torch.py"
+    for name in ("quickstart", "network_monitor", "census_scaling")]
+#: the JAX package's names the port exports under another name
+RENAMED = {"default_mesh": "default_devices"}
 #: ``import jax``, ``from jax…``, ``import repro``, ``from repro.…`` —
 #: but not ``repro_torch``
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|,|$)",
@@ -22,7 +29,9 @@ def test_import_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.kernels.ops, "
             "repro_torch.convert, repro_torch.core.distributed, "
             "repro_torch.core.partition, repro_torch.core.faults, "
-            "repro_torch.core.plan_stream, repro_torch.core.engine\n"
+            "repro_torch.core.plan_stream, repro_torch.core.engine, "
+            "repro_torch.core.temporal, repro_torch.analysis, "
+            "repro_torch.analysis.report\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
             "'repro') or m.startswith(('jax.', 'jaxlib.', 'repro.')))\n"
             "print(bad)\n")
@@ -41,12 +50,43 @@ def test_port_sources_exist():
                 "core/plan_stream.py", "core/census.py", "core/engine.py",
                 "core/incremental.py", "core/pair_index.py",
                 "core/partition.py", "core/distributed.py",
-                "core/faults.py", "core/__init__.py",
+                "core/faults.py", "core/temporal.py", "core/__init__.py",
+                "analysis/__init__.py", "analysis/report.py",
                 "kernels/build.py", "kernels/census_fused.py",
                 "kernels/tricode_hist.py", "kernels/pair_codes.py",
                 "kernels/ref.py",
                 "kernels/ops.py", "convert.py", "__init__.py"):
         assert f"repro_torch/{mod}" in names, mod
+
+
+def test_examples_exist():
+    for path in PORT_FILES[-3:]:
+        assert path.is_file(), path
+
+
+def reference_core_names() -> list[str]:
+    """``repro.core.__all__``, read in a process of its own (the JAX
+    package imports JAX; the port's import check must not see it)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               JAX_PLATFORMS="cpu")
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import json, repro.core; print(json.dumps(repro.core.__all__))"],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=120,
+        check=True)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_core_exports_cover_the_reference():
+    import repro_torch
+    import repro_torch.core
+    names = reference_core_names()
+    assert "TriadMonitor" in names and "default_mesh" in names
+    want = {RENAMED.get(name, name) for name in names}
+    assert not want - set(repro_torch.core.__all__)
+    assert not want - set(repro_torch.__all__)
+    for name in want:
+        assert getattr(repro_torch.core, name) is getattr(repro_torch, name)
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)

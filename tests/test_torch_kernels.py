@@ -952,3 +952,71 @@ def test_session_faults_on_card(cuda):
     np.testing.assert_array_equal(s.census(), rt.census_batagelj_mrvar(g))
     assert s.retries >= 2
     assert ops.fused_census_desc_partials.launches - before > s.stats.chunks
+
+
+def network_monitor_example():
+    """``examples/network_monitor_torch.py``, loaded as the smoke loads
+    it."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import load_example
+    return load_example("network_monitor_torch")
+
+
+#: the example's scenario at its default window and a sliding stride
+MONITOR_SCENARIO = dict(window=1200, windows=28, stride=600)
+
+
+@pytest.mark.parametrize("backend,emit", [("fused", "device"),
+                                          ("fused", "host"),
+                                          ("hist", None)])
+def test_network_monitor_on_card_matches_cpu(cuda, backend, emit):
+    """The example's monitor on the card equals the plain torch monitor
+    on the CPU in censuses, proportions, alarms and per-window stats,
+    launching the path's kernel, with an alarm on the injected scans."""
+    example = network_monitor_example()
+    want, spans = example.run(backend="torch", device="cpu", emit=emit,
+                              **MONITOR_SCENARIO)
+    kernel = {("fused", "device"): ops.fused_census_desc_partials,
+              ("fused", "host"): ops.fused_census_partials,
+              ("hist", None): ops.tricode_histogram}[backend, emit]
+    before = kernel.launches
+    got, _ = example.run(backend=backend, device=cuda, emit=emit,
+                         **MONITOR_SCENARIO)
+    assert kernel.launches > before
+    np.testing.assert_array_equal(got.censuses, want.censuses)
+    np.testing.assert_array_equal(got.proportions(), want.proportions())
+    assert got.alarms() == want.alarms()
+    for a, b in zip(got.window_stats, want.window_stats):
+        for field in ("items", "full_items", "affected_pairs", "chunks"):
+            assert getattr(a, field) == getattr(b, field), field
+    assert example.detected(got, spans)[1]
+
+
+def test_network_monitor_faults_on_card(cuda):
+    """Under the example's fault plan the monitor on the card degrades
+    the same windows as on the CPU and equals it everywhere."""
+    example = network_monitor_example()
+    got, _ = example.run(device=cuda, inject_faults=0, **MONITOR_SCENARIO)
+    want, _ = example.run(device="cpu", inject_faults=0, **MONITOR_SCENARIO)
+    assert got.degraded == want.degraded != []
+    np.testing.assert_array_equal(got.censuses, want.censuses)
+    assert got._session.retries == want._session.retries >= 1
+
+
+def test_session_recounts_after_a_failed_call_on_card(cuda):
+    """A session call that fails past its retry budget leaves no ring
+    slot in flight: the session recounts after it (as the monitor does
+    after a degraded window), equal to the CPU."""
+    g = rt.paper_workload("orkut", 160, 8.0, seed=5)
+    plan = rt.FaultPlan(faults=[
+        rt.Fault("dispatch", "error", device=0, occurrence=4 + i)
+        for i in range(3)])
+    s = rt.CensusEngine(device=cuda, faults=plan, max_retries=2,
+                        retry_backoff=0.0).session(g, max_items=401)
+    with pytest.raises(rt.FaultError):
+        s.census()
+    s.set_graph(g)
+    np.testing.assert_array_equal(s.census(), rt.census_batagelj_mrvar(g))
+    assert s.stats.chunks > 4

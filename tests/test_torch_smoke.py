@@ -45,6 +45,20 @@ def test_rehearsal_runs_every_phase_and_reports_nothing():
                   "partitioned session 2d (2, 2) update k=10:",
                   "replicated session x2",
                   "faults and multi-device sessions phase",
+                  "monitor-backbone stream:",
+                  "monitor-backbone full window 3:",
+                  "monitor-backbone plain torch window 1:",
+                  "monitor-backbone incremental window 0:",
+                  "monitor-backbone incremental window 3:",
+                  "monitor-backbone totals: 3 slides",
+                  "monitor-backbone orient=degree window 3:",
+                  "monitor-backbone partitioned x4 window 1:",
+                  "example fused/device:", "example fused/host:",
+                  "example hist/default:",
+                  "example fused/device no index:",
+                  "example under --inject-faults 0: degraded windows",
+                  "temporal monitor phase: launches",
+                  "phase temporal monitor done",
                   "pair_codes entry point",
                   "oracle phase: 72 runs and 36 sessions",
                   "rehearsal complete"):
