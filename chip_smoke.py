@@ -81,7 +81,25 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    the patents-size graph (row pairs of window 0);
 10. runs the small oracle workloads through every backend × orient × emit
     against the serial Batagelj–Mrvar census, as one-shot runs and as
-    sessions over a short delta stream.
+    sessions over a short delta stream;
+11. serves an LM through ``ServeEngine`` (the LM substrate has no
+    hand-written kernel: plain torch, bfloat16): qwen2-0.5b at full width
+    and depth (seeded random weights on the card; 3 requests of batch 8,
+    prompt 512, 64 new tokens, two greedy and one at temperature 0.8),
+    printing parameters, prefill and decode times and rates, the decode
+    step's weight-read bound, kernel launches per decode step and the
+    idle share of a traced request, and holding (a) greedy requests
+    repeatable, the prompt echoed, ids below the vocabulary, (b)
+    prefill(P) against prefill(P - 1) + one decode step at corr ≥ 0.999,
+    (c) the weights cut to 2 layers, card against the CPU path, prefill
+    and 8 teacher-forced decode steps at corr ≥ 0.9999 and max
+    difference ≤ 0.02 · max logit; then granite-moe-3b-a800m (4 layers;
+    (a), dropped tokens in prefill and decode, one MoE layer in float32
+    card against CPU), qwen2-vl-2b (2 layers, patch embeddings over a
+    quarter of the prompt with M-RoPE positions; (a)-(c)) and
+    seamless-m4t-medium (2 + 2 layers; (a), (c), its prefill/decode
+    correlation printed, not held), each at full width, batch 4,
+    prompt 128, 16 new tokens.
 
 Any mismatch raises, so the exit code is non-zero.  The line before the
 last is the per-kernel JSON record; the last line is
@@ -2051,6 +2069,387 @@ def oracle_phase(device) -> dict:
     return counts
 
 
+#: the LM serving phase: qwen2-0.5b at full width and depth (batch,
+#: prompt, new tokens, requests), then three configs at full width with
+#: their depth cut (layers; an encoder-decoder's encoder as deep)
+LM_MAIN = dict(arch="qwen2-0.5b", batch=8, prompt=512, new=64, q_chunk=64)
+LM_SIDE = (("granite-moe-3b-a800m", 4), ("qwen2-vl-2b", 2),
+           ("seamless-m4t-medium", 2))
+LM_SIDE_SHAPE = dict(batch=4, prompt=128, new=16)
+#: hold (c): the full width cut to 2 layers, card against the CPU path
+LM_CUT = dict(layers=2, batch=2, prompt=64, steps=8)
+LM_CORR, LM_REL = 0.9999, 0.02
+
+
+def lm_config(arch: str, layers: int | None, rehearse: bool):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if rehearse:
+        return cfg.reduced()
+    if layers is None:
+        return cfg
+    changes = dict(num_layers=layers)
+    if cfg.is_encdec:
+        changes["encoder_layers"] = layers
+    return dataclasses.replace(cfg, **changes)
+
+
+def lm_request(cfg, batch: int, prompt: int, seed: int) -> dict:
+    """One request's inputs from ``seed``: prompt ids, and the source
+    frames of an encoder-decoder or, for a vision-language model, patch
+    embeddings over a quarter of the prompt (an image of 4 rows) with
+    their M-RoPE (t, h, w) positions; text keeps its index as position,
+    so the last prompt token sits where the decode step counts from."""
+    rng = np.random.default_rng(seed)
+    req = {"tokens": rng.integers(0, cfg.vocab_size,
+                                  (batch, prompt)).astype(np.int32)}
+    if cfg.is_encdec:
+        req["src_embeds"] = rng.normal(
+            size=(batch, prompt, cfg.d_model)).astype(np.float32)
+    if cfg.modality == "vlm":
+        lo, span = prompt // 8, prompt // 4
+        mask = np.zeros((batch, prompt), bool)
+        mask[:, lo:lo + span] = True
+        pos = np.broadcast_to(np.arange(prompt), (3, batch, prompt)).copy()
+        patch = np.arange(span)
+        pos[0, :, lo:lo + span] = lo
+        pos[1, :, lo:lo + span] = lo + patch // (span // 4)
+        pos[2, :, lo:lo + span] = lo + patch % (span // 4)
+        req.update(vision_mask=mask, positions3=pos.astype(np.int32),
+                   vision_embeds=rng.normal(
+                       size=(batch, prompt, cfg.d_model)).astype(np.float32))
+    return req
+
+
+def lm_batch(req: dict, device, upto: int | None = None) -> dict:
+    """A request as the model functions take it, cut to its first
+    ``upto`` positions."""
+    import torch
+    cut = slice(None, upto)
+    out = {"tokens": torch.as_tensor(req["tokens"][:, cut]).long()}
+    if "src_embeds" in req:
+        out["src_embeds"] = torch.as_tensor(req["src_embeds"]).to(
+            torch.bfloat16)
+    if "vision_mask" in req:
+        out["vision_mask"] = torch.as_tensor(req["vision_mask"][:, cut])
+        out["vision_embeds"] = torch.as_tensor(
+            req["vision_embeds"][:, cut]).to(torch.bfloat16)
+        out["positions3"] = torch.as_tensor(req["positions3"][..., cut])
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def lm_generate(eng, req: dict, new: int, **kw):
+    return eng.generate(req["tokens"], max_new_tokens=new,
+                        src_embeds=req.get("src_embeds"),
+                        vision_embeds=req.get("vision_embeds"),
+                        vision_mask=req.get("vision_mask"),
+                        positions3=req.get("positions3"), **kw)
+
+
+def lm_hold(label: str, got, want, corr=LM_CORR, rel=LM_REL) -> dict:
+    """Correlation and max |got - want| over max |want| of two logit
+    sets; fails below ``corr`` or above ``rel``."""
+    got = got.float().cpu().numpy().ravel()
+    want = want.float().cpu().numpy().ravel()
+    c = float(np.corrcoef(got, want)[0, 1])
+    d = float(np.abs(got - want).max() / np.abs(want).max())
+    require(c >= corr and d <= rel,
+            f"{label}: corr {c} (>= {corr}), max diff / max {d} "
+            f"(<= {rel})")
+    return dict(corr=c, rel=d)
+
+
+def lm_hold_a(label, eng, cfg, req, new) -> tuple:
+    """Hold (a): a greedy request run twice gives the same tokens, the
+    prompt echoed and every id below ``vocab_size``; returns the tokens
+    and the second (warm) run's timing."""
+    out = lm_generate(eng, req, new)
+    again = lm_generate(eng, req, new)
+    timing = dict(eng.timing)
+    p = req["tokens"].shape[1]
+    require(np.array_equal(out, again), f"{label}: greedy not repeatable")
+    require(np.array_equal(out[:, :p], req["tokens"]),
+            f"{label}: prompt not echoed")
+    require(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+            f"{label}: ids outside the vocabulary")
+    return out, timing
+
+
+def lm_prefill_vs_decode(cfg, w, req, device, capacity: int, q_chunk):
+    """prefill(P) against prefill(P - 1) + one decode step: the two
+    paths' next-token logits (the JAX package's test_serve bound)."""
+    import torch
+    from repro_torch.models import model
+    from repro_torch.serve import engine
+    p = req["tokens"].shape[1]
+    with torch.inference_mode():
+        full, _ = model.serve_prefill(
+            cfg, w, lm_batch(req, device), q_chunk=q_chunk,
+            enc_out=(model.encode(cfg, w, lm_batch(req, device)[
+                "src_embeds"], q_chunk=q_chunk) if cfg.is_encdec else None))
+        step = engine.teacher_forced_logits(
+            cfg, w, lm_batch(req, device, p - 1),
+            torch.as_tensor(req["tokens"][:, -1:]).long().to(device),
+            capacity=capacity, q_chunk=q_chunk)[-1]
+    v = cfg.vocab_size
+    a = full[:, -1, :v].float().cpu().numpy().ravel()
+    b = step[:, :v].float().cpu().numpy().ravel()
+    return float(np.corrcoef(a, b)[0, 1])
+
+
+def lm_cut_hold(label, cfg, params, device, q_chunk: int, cut: dict
+                ) -> dict:
+    """Hold (c): ``params`` cut to ``cut["layers"]`` layers of the full
+    width, on the card and on the CPU path: the prefill's and
+    ``cut["steps"]`` teacher-forced decode steps' logits (tokens: the
+    card's greedy ones)."""
+    import dataclasses
+    import torch
+    from repro_torch.models import model
+    from repro_torch.serve import engine
+    n = cut["layers"]
+    cut_cfg = dataclasses.replace(cfg, num_layers=n)
+    keep = {k: v for k, v in params.state_dict().items()
+            if not k.startswith("layers.") or int(k.split(".")[1]) < n}
+    small = model.LanguageModel(cut_cfg, device="cpu")
+    small.load_state_dict(keep)
+    cpu_w = model.compute_copy(small)
+    card_w = model.compute_copy(small, device=device)
+    req = lm_request(cut_cfg, cut["batch"], cut["prompt"], seed=7)
+    cap = cut["prompt"] + cut["steps"] + 8
+    eng = engine.ServeEngine(cut_cfg, small, max_seq_len=cap,
+                             q_chunk=q_chunk, device=device)
+    tokens = torch.as_tensor(
+        lm_generate(eng, req, cut["steps"])[:, cut["prompt"]:]).long()
+    got = engine.teacher_forced_logits(
+        cut_cfg, card_w, lm_batch(req, device), tokens.to(device),
+        capacity=cap, q_chunk=q_chunk)
+    want = engine.teacher_forced_logits(
+        cut_cfg, cpu_w, lm_batch(req, "cpu"), tokens, capacity=cap,
+        q_chunk=q_chunk)
+    v = cfg.vocab_size
+    worst = dict(corr=1.0, rel=0.0)
+    for i, (g, w) in enumerate(zip(got, want)):
+        held = lm_hold(f"{label} (c) step {i}", g[:, :v], w[:, :v])
+        worst = dict(corr=min(worst["corr"], held["corr"]),
+                     rel=max(worst["rel"], held["rel"]))
+    return worst
+
+
+def lm_moe_holds(label, cfg, params, eng, req, capacity: int, q_chunk,
+                 device) -> str:
+    """The MoE config's dropped items in a prefill and in its greedy
+    decode steps (each MoE call's count, summed over layers), and its
+    last MoE layer's ``apply_moe`` in float32 on the card against the
+    CPU: equal ``expert_load`` and ``dropped_tokens``, outputs within
+    1e-4 of their largest magnitude (float32 sums over 1,536 and 512
+    terms in two orders; the reference's fan-in recipe reads an expert
+    stack's leading axis, so outputs reach the hundreds)."""
+    import torch
+    from repro_torch.models import model, moe
+    from repro_torch.serve import engine
+    drops = {"prefill": [], "decode": []}
+    stage = ["prefill"]
+    real = moe.apply_moe
+
+    def counted(*a, **kw):
+        y, m = real(*a, **kw)
+        drops[stage[0]].append(m["dropped_tokens"])
+        return y, m
+
+    b, p = req["tokens"].shape
+    steps = capacity - p - 8
+    model.moe_mod.apply_moe = counted
+    try:
+        with torch.inference_mode():
+            batch = lm_batch(req, device)
+            _, caches = model.serve_prefill(cfg, eng.weights, batch,
+                                            q_chunk=q_chunk)
+            stage[0] = "decode"
+            cache = engine.prefill_to_decode_cache(cfg, caches, p, capacity)
+            tok = batch["tokens"][:, -1:]
+            for _ in range(steps):
+                logits, cache = model.decode_step(cfg, eng.weights, tok,
+                                                  cache)
+                tok = logits[:, -1].argmax(-1)[:, None]
+    finally:
+        model.moe_mod.apply_moe = real
+    layer = params.layers[-1]["moe"]
+    x = torch.as_tensor(np.random.default_rng(3).normal(
+        size=(b, p, cfg.d_model)), dtype=torch.float32)
+    want, want_m = moe.apply_moe(
+        cfg, {k: layer[k].cpu() for k in layer.inits}, x)
+    got, got_m = moe.apply_moe(cfg, layer, x.to(device))
+    err = float((got.cpu() - want).abs().max() / want.abs().max())
+    for key in ("expert_load", "dropped_tokens"):
+        require(torch.equal(got_m[key].cpu(), want_m[key]),
+                f"{label} apply_moe {key} card != cpu")
+    require(err <= 1e-4, f"{label} apply_moe f32 max err / max {err}")
+    layers = cfg.num_layers - int(cfg.first_layer_dense)
+    return (f"dropped_tokens prefill {sum(int(d) for d in drops['prefill'])}"
+            f" of {b * p * cfg.top_k * layers} items, decode "
+            f"{sum(int(d) for d in drops['decode'])} of "
+            f"{steps * b * cfg.top_k * layers} over {steps} steps; "
+            f"apply_moe f32 card vs cpu: expert_load and dropped_tokens "
+            f"({int(want_m['dropped_tokens'])}) equal, max err / max "
+            f"{err:.3g} (<= 1e-4)")
+
+
+def lm_trace(fn, device) -> dict:
+    """Kernels launched and the device's busy share while ``fn()`` runs,
+    from a ``torch.profiler`` trace (busy: the union of every kernel,
+    copy and memset span); none on the CPU."""
+    import torch
+    from torch.autograd import DeviceType
+    if device.type != "cuda":
+        fn()
+        return dict(kernels=None, busy_ms=None, wall_ms=None, idle=None)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    activity = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                and not e.name.startswith("serve.")]
+    kernels = [e for e in activity
+               if not e.name.startswith(("Memcpy", "Memset"))]
+    busy_us, reach = 0.0, float("-inf")
+    for lo, hi in sorted((e.time_range.start, e.time_range.end)
+                         for e in activity):
+        busy_us += max(0.0, hi - max(lo, reach))
+        reach = max(reach, hi)
+    return dict(kernels=len(kernels), busy_ms=busy_us / 1e3,
+                wall_ms=wall_ms, idle=1.0 - busy_us / 1e3 / wall_ms)
+
+
+def lm_serving_phase(device, rehearse: bool) -> dict:
+    """qwen2-0.5b served at full width and depth through ``ServeEngine``,
+    then the MoE, vision-language and encoder-decoder configs at full
+    width with their depth cut, each held as the module docstring says;
+    returns the main cell's numbers."""
+    import torch
+    from repro_torch.models import model, moe
+    from repro_torch.serve import engine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    main, side, cut = dict(LM_MAIN), dict(LM_SIDE_SHAPE), dict(LM_CUT)
+    if rehearse:
+        main.update(batch=2, prompt=24, new=4, q_chunk=8)
+        side.update(batch=2, prompt=16, new=3)
+        cut.update(prompt=16, steps=3)
+    # 1. qwen2-0.5b, full config
+    cfg = lm_config(main["arch"], None, rehearse)
+    t0 = time.perf_counter()
+    params = model.make_params(cfg, seed=0, device=device)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    p_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    b, p, new = main["batch"], main["prompt"], main["new"]
+    cap = p + new + 8
+    eng = engine.ServeEngine(cfg, params, max_seq_len=cap,
+                             q_chunk=main["q_chunk"], device=device)
+    w_bytes = sum(t.numel() * t.element_size()
+                  for t in eng.weights.parameters())
+    log(f"lm {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size} (padded {model.pad_vocab(cfg.vocab_size)}): "
+        f"{n_params} parameters, {p_bytes} bytes float32, initialised in "
+        f"{init_s:.3f} s; compute copy {w_bytes} bytes (bfloat16, norms "
+        f"float32)")
+    req = lm_request(cfg, b, p, seed=0)
+    greedy, timing = lm_hold_a(f"lm {cfg.name}", eng, cfg, req, new)
+    sampled = lm_generate(eng, lm_request(cfg, b, p, seed=1), new,
+                          temperature=0.8, seed=1)
+    require(bool(((sampled >= 0) & (sampled < cfg.vocab_size)).all()),
+            "lm sampled ids outside the vocabulary")
+    step_ms = timing["decode_ms"] / new
+    # the decode step's weight read: every matrix once (the tied
+    # embedding as the head), the embedding gather's rows aside
+    cache_bytes = (2 * cfg.num_layers * b * cap * cfg.num_kv_heads
+                   * cfg.head_dim * 2)
+    bound = w_bytes / HBM_BYTES_PER_S * 1e3
+    traced = lm_trace(lambda: lm_generate(eng, req, new), device)
+    prefill_only = lm_trace(lambda: lm_generate(eng, req, 0), device)
+    per_step = (None if traced["kernels"] is None else
+                (traced["kernels"] - prefill_only["kernels"]) / new)
+    out = dict(prefill_ms=timing["prefill_ms"], decode_step_ms=step_ms,
+               prefill_tok_s=b * p / timing["prefill_ms"] * 1e3,
+               decode_tok_s=b / step_ms * 1e3, bound_ms=bound,
+               launches_per_step=per_step, idle=traced["idle"],
+               params=n_params)
+    log(f"lm {cfg.name} serve: batch {b}, prompt {p}, {new} new tokens, "
+        f"3 requests (2 greedy, 1 at temperature 0.8 seed 1): prefill "
+        f"{timing['prefill_ms']:.4f} ms ({out['prefill_tok_s']:.1f} "
+        f"tokens/s), decode {step_ms:.4f} ms/step "
+        f"({out['decode_tok_s']:.1f} tokens/s); decode bound "
+        f"{bound:.4f} ms (weights {w_bytes} bytes / 3.35 TB/s; the KV "
+        f"cache adds at most {cache_bytes} bytes); greedy repeatable, "
+        f"prompt echoed, ids < vocab")
+    untraced_ms = timing["prefill_ms"] + timing["decode_ms"]
+    out["idle_untraced"] = (None if traced["busy_ms"] is None
+                            else 1 - traced["busy_ms"] / untraced_ms)
+    log(f"lm {cfg.name} trace: one greedy request {traced['wall_ms']} ms "
+        f"wall under the profiler, device busy {traced['busy_ms']} ms, "
+        f"idle share {traced['idle']} (of the untraced request's "
+        f"{untraced_ms} ms on the card's clock: {out['idle_untraced']}); "
+        f"kernels {traced['kernels']} (prefill alone "
+        f"{prefill_only['kernels']}): {per_step} launches per decode step")
+    corr_b = lm_prefill_vs_decode(cfg, eng.weights, req, device, cap,
+                                  main["q_chunk"])
+    require(corr_b >= 0.999, f"lm {cfg.name} (b): prefill vs decode corr "
+            f"{corr_b} < 0.999")
+    held_c = lm_cut_hold(f"lm {cfg.name}", cfg, params, device,
+                         main["q_chunk"], cut)
+    log(f"lm {cfg.name} holds: (a) yes; (b) prefill(P) vs prefill(P-1) + "
+        f"decode corr {corr_b:.6f} (>= 0.999); (c) {cut['layers']} "
+        f"layers card vs cpu, prefill + {cut['steps']} teacher-forced "
+        f"steps: min corr {held_c['corr']:.7f} (>= {LM_CORR}), max diff / "
+        f"max {held_c['rel']:.5f} (<= {LM_REL}); phase at "
+        f"{time.perf_counter() - t_phase:.3f} s")
+    del eng, params
+
+    # 2.-3. MoE, vision-language and encoder-decoder at full width
+    for arch, layers in LM_SIDE:
+        cfg = lm_config(arch, layers, rehearse)
+        params = model.make_params(cfg, seed=0, device=device)
+        sb, sp, snew = side["batch"], side["prompt"], side["new"]
+        scap = sp + snew + 8
+        eng = engine.ServeEngine(cfg, params, max_seq_len=scap,
+                                 q_chunk=main["q_chunk"], device=device)
+        req = lm_request(cfg, sb, sp, seed=2)
+        label = f"lm {cfg.name} x{cfg.num_layers}"
+        _, timing = lm_hold_a(label, eng, cfg, req, snew)
+        notes = []
+        if cfg.is_moe:
+            notes.append(lm_moe_holds(label, cfg, params, eng, req, scap,
+                                      main["q_chunk"], device))
+        else:
+            held = lm_cut_hold(label, cfg, params, device, main["q_chunk"],
+                               cut)
+            notes.append(f"(c) min corr {held['corr']:.7f}, max diff / max "
+                         f"{held['rel']:.5f}")
+            corr_b = lm_prefill_vs_decode(cfg, eng.weights, req, device,
+                                          scap, main["q_chunk"])
+            if cfg.modality == "vlm":
+                require(corr_b >= 0.999, f"{label} (b): prefill vs decode "
+                        f"corr {corr_b} < 0.999")
+                notes.append(f"(b) corr {corr_b:.6f}")
+            else:
+                notes.append(f"prefill vs decode corr {corr_b:.6f} (not "
+                             f"held: the reference's two paths differ)")
+        log(f"{label}: batch {sb}, prompt {sp}, {snew} new tokens: "
+            f"prefill {timing['prefill_ms']:.4f} ms, decode "
+            f"{timing['decode_ms'] / snew:.4f} ms/step; (a) yes; "
+            + "; ".join(notes)
+            + f"; phase at {time.perf_counter() - t_phase:.3f} s")
+        del eng, params
+    return out
+
+
 def phase_done(name: str, t_start: float) -> None:
     log(f"phase {name} done at {time.perf_counter() - t_start:.3f} s")
 
@@ -2189,6 +2588,10 @@ def main(argv=None) -> int:
     phase_done("pair_codes and oracle", t_start)
     records[1]["launches"] = counts["fused_census_partials"]
     records[2]["launches"] = counts["tricode_histogram"]
+
+    # LM serving: no hand-written kernel on this path (plain torch)
+    lm_serving_phase(device, args.rehearse)
+    phase_done("LM serving", t_start)
 
     log(f"chip_smoke elapsed {time.perf_counter() - t_start:.3f} s")
     if args.rehearse:

@@ -68,6 +68,14 @@ fused``
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; with no CUDA device, ``device=None`` raises.  The
 kernels are built from ``kernels/csrc`` by ``nvcc`` at first CUDA use.
+
+The LM substrate's serving path (the attention architectures of
+``repro_torch.configs``) lives in ``repro_torch.models`` and
+``repro_torch.serve``, in plain torch::
+
+    params = make_params(get_config("qwen2-0.5b"), seed=0)   # on the card
+    eng = ServeEngine(cfg, params, max_seq_len=584, q_chunk=64)
+    out = eng.generate(prompts, max_new_tokens=64)
 """
 
 from repro_torch.core.census import (

@@ -149,7 +149,7 @@ def resolve_device(device=None) -> torch.device:
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "no CUDA device is available; CensusEngine runs on the GPU "
+                "no CUDA device is available; the port runs on the GPU "
                 "unless given device='cpu' (the plain torch path)")
         return torch.device("cuda", torch.cuda.current_device())
     device = torch.device(device)

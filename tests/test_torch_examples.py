@@ -1,8 +1,9 @@
-"""The port's entry points: the three ``examples/*_torch.py`` scripts run
-end to end on the CPU (``--device cpu``) at small sizes and print their
-check lines, and each refuses to run without a card when ``--device`` is
-not given.  ``CensusPlan.balance_stats``, which the scaling example
-reports, equals the JAX package's."""
+"""The port's entry points: the four ``examples/*_torch.py`` scripts and
+the serving launcher ``python -m repro_torch.launch.serve`` run end to
+end on the CPU (``--device cpu``) at small sizes and print their check
+lines, and each refuses to run without a card when ``--device`` is not
+given.  ``CensusPlan.balance_stats``, which the scaling example reports,
+equals the JAX package's."""
 
 import os
 import re
@@ -18,14 +19,17 @@ from repro.core import paper_workload as ref_paper_workload
 
 ROOT = Path(__file__).resolve().parents[1]
 SCRIPTS = ("quickstart_torch", "network_monitor_torch",
-           "census_scaling_torch")
+           "census_scaling_torch", "serve_lm_torch")
+LAUNCHER = "-m repro_torch.launch.serve"
 
 
 def run_example(name, *args):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    target = (LAUNCHER.split() if name == LAUNCHER
+              else [str(ROOT / "examples" / f"{name}.py")])
     return subprocess.run(
-        [sys.executable, str(ROOT / "examples" / f"{name}.py"), *args],
+        [sys.executable, *target, *args],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=240)
 
 
@@ -75,9 +79,34 @@ def test_census_scaling_on_cpu():
     assert "### §Streaming schedule" in out.stdout
 
 
-@pytest.mark.parametrize("name", SCRIPTS)
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "seamless-m4t-medium"])
+def test_serve_lm_on_cpu(arch):
+    out = run_example("serve_lm_torch", "--device", "cpu", "--arch", arch,
+                      "--new-tokens", "6")
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert f"{arch} (reduced," in out.stdout and "on cpu" in out.stdout
+    assert "shapes ✓" in out.stdout
+
+
+def test_serve_launcher_on_cpu():
+    out = run_example(LAUNCHER, "--device", "cpu", "--arch",
+                      "granite-moe-3b-a800m", "--requests", "2",
+                      "--new-tokens", "4")
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.count("generated (4, 20)") == 2
+    assert "32 tokens in" in out.stdout and "on cpu" in out.stdout
+
+
+def test_serve_launcher_refuses_recurrent_archs():
+    out = run_example(LAUNCHER, "--device", "cpu", "--arch", "xlstm-1.3b")
+    assert out.returncode != 0
+    assert "not ported yet" in out.stderr
+
+
+@pytest.mark.parametrize("name", SCRIPTS + (LAUNCHER,))
 def test_refuses_without_a_card(name):
-    out = run_example(name)
+    out = run_example(name, *(["--arch", "qwen2-0.5b"]
+                              if name == LAUNCHER else []))
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr
 

@@ -16,7 +16,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + [
     ROOT / "examples" / f"{name}_torch.py"
-    for name in ("quickstart", "network_monitor", "census_scaling")]
+    for name in ("quickstart", "network_monitor", "census_scaling",
+                 "serve_lm")]
 #: the JAX package's names the port exports under another name
 RENAMED = {"default_mesh": "default_devices"}
 #: ``import jax``, ``from jax…``, ``import repro``, ``from repro.…`` —
@@ -31,7 +32,11 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.core.partition, repro_torch.core.faults, "
             "repro_torch.core.plan_stream, repro_torch.core.engine, "
             "repro_torch.core.temporal, repro_torch.analysis, "
-            "repro_torch.analysis.report\n"
+            "repro_torch.analysis.report, repro_torch.configs, "
+            "repro_torch.configs.registry, repro_torch.models.common, "
+            "repro_torch.models.ffn, repro_torch.models.attention, "
+            "repro_torch.models.moe, repro_torch.models.model, "
+            "repro_torch.serve.engine, repro_torch.launch.serve\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
             "'repro') or m.startswith(('jax.', 'jaxlib.', 'repro.')))\n"
             "print(bad)\n")
@@ -55,12 +60,26 @@ def test_port_sources_exist():
                 "kernels/build.py", "kernels/census_fused.py",
                 "kernels/tricode_hist.py", "kernels/pair_codes.py",
                 "kernels/ref.py",
-                "kernels/ops.py", "convert.py", "__init__.py"):
+                "kernels/ops.py", "convert.py", "__init__.py",
+                "configs/__init__.py", "configs/base.py",
+                "configs/registry.py", "models/__init__.py",
+                "models/common.py", "models/ffn.py", "models/attention.py",
+                "models/moe.py", "models/model.py", "serve/__init__.py",
+                "serve/engine.py", "launch/__init__.py", "launch/serve.py"):
         assert f"repro_torch/{mod}" in names, mod
 
 
+def test_every_reference_config_is_copied():
+    ref = ROOT / "src" / "repro" / "configs"
+    port = ROOT / "src" / "repro_torch" / "configs"
+    names = sorted(p.name for p in ref.glob("*.py"))
+    assert len(names) == 13
+    for name in names:
+        assert (port / name).is_file(), name
+
+
 def test_examples_exist():
-    for path in PORT_FILES[-3:]:
+    for path in PORT_FILES[-4:]:
         assert path.is_file(), path
 
 

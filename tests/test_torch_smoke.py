@@ -61,6 +61,11 @@ def test_rehearsal_runs_every_phase_and_reports_nothing():
                   "phase temporal monitor done",
                   "pair_codes entry point",
                   "oracle phase: 72 runs and 36 sessions",
+                  "lm qwen2-0.5b serve:", "lm qwen2-0.5b trace:",
+                  "lm qwen2-0.5b holds: (a) yes; (b)",
+                  "lm granite-moe-3b-a800m x2:",
+                  "lm qwen2-vl-2b x2:", "lm seamless-m4t-medium x2:",
+                  "phase LM serving done",
                   "rehearsal complete"):
         assert phase in out.stdout, phase
     assert '"ok"' not in out.stdout
