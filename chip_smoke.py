@@ -99,7 +99,24 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
     quarter of the prompt with M-RoPE positions; (a)-(c)) and
     seamless-m4t-medium (2 + 2 layers; (a), (c), its prefill/decode
     correlation printed, not held), each at full width, batch 4,
-    prompt 128, 16 new tokens.
+    prompt 128, 16 new tokens;
+12. serves the recurrent models the same way, at full width and depth
+    with seeded random weights on the card: xlstm-1.3b (48 layers, 42
+    mLSTM and 6 sLSTM; batch 8, prompt 512, 64 new tokens) and
+    recurrentgemma-2b (26 layers, 18 RG-LRU and 8 local attention with a
+    2,048-slot ring; batch 4, prompt 2,048, 64 new tokens, so every decode
+    step wraps the ring), printing parameters, float32 bytes,
+    initialisation seconds and the compute copy's bytes by dtype, prefill
+    and decode times and rates, the decode step's bound from the bytes it
+    moves (weights, every recurrent state read and written, the KV ring),
+    launches per decode step and per prefill and the idle share of a
+    traced greedy request, and holding (a) and (b) as above and (c) with
+    the depth cut to every block kind once (sLSTM + mLSTM; RG-LRU, RG-LRU,
+    local attention) -- for xlstm stepwise, since its sLSTM is chaotic at
+    full width: its prefill logits card vs CPU are printed beside the CPU
+    path's own deviation under one bfloat16 step of one input, and the
+    mLSTM layer's prefill from the CPU's input to it and each decode step
+    from the CPU's cache are held.
 
 Any mismatch raises, so the exit code is non-zero.  The line before the
 last is the per-kernel JSON record; the last line is
@@ -2198,22 +2215,29 @@ def lm_prefill_vs_decode(cfg, w, req, device, capacity: int, q_chunk):
     return float(np.corrcoef(a, b)[0, 1])
 
 
+def lm_cut_model(cfg, params, n: int):
+    """(the config cut to its first ``n`` layers, a copy of ``params``'
+    first ``n`` layers and top-level leaves on the CPU)."""
+    import dataclasses
+    from repro_torch.models import model
+    cut_cfg = dataclasses.replace(cfg, num_layers=n)
+    keep = {k: v for k, v in params.state_dict().items()
+            if not k.startswith("layers.") or int(k.split(".")[1]) < n}
+    small = model.LanguageModel(cut_cfg, device="cpu")
+    small.load_state_dict(keep)
+    return cut_cfg, small
+
+
 def lm_cut_hold(label, cfg, params, device, q_chunk: int, cut: dict
                 ) -> dict:
     """Hold (c): ``params`` cut to ``cut["layers"]`` layers of the full
     width, on the card and on the CPU path: the prefill's and
     ``cut["steps"]`` teacher-forced decode steps' logits (tokens: the
     card's greedy ones)."""
-    import dataclasses
     import torch
     from repro_torch.models import model
     from repro_torch.serve import engine
-    n = cut["layers"]
-    cut_cfg = dataclasses.replace(cfg, num_layers=n)
-    keep = {k: v for k, v in params.state_dict().items()
-            if not k.startswith("layers.") or int(k.split(".")[1]) < n}
-    small = model.LanguageModel(cut_cfg, device="cpu")
-    small.load_state_dict(keep)
+    cut_cfg, small = lm_cut_model(cfg, params, cut["layers"])
     cpu_w = model.compute_copy(small)
     card_w = model.compute_copy(small, device=device)
     req = lm_request(cut_cfg, cut["batch"], cut["prompt"], seed=7)
@@ -2235,6 +2259,106 @@ def lm_cut_hold(label, cfg, params, device, q_chunk: int, cut: dict
         worst = dict(corr=min(worst["corr"], held["corr"]),
                      rel=max(worst["rel"], held["rel"]))
     return worst
+
+
+def lm_stepwise_hold(label, cfg, params, device, q_chunk: int, cut: dict
+                     ) -> dict:
+    """Hold (c) for a model whose recurrence is chaotic at this width
+    (xLSTM: the reference's fan-in rule draws the sLSTM's recurrent
+    weights at std 0.5, ROADMAP §3), where two paths that round apart
+    part within ~20 positions, so that logits over a prompt cannot be
+    held card against CPU.  ``params`` cut to ``cut["layers"]`` layers:
+
+    * the prefill's logits, card against CPU, are printed beside the
+      CPU path's own deviation when one element of a prompt token's
+      embedding moves by one bfloat16 step;
+    * each non-sLSTM layer's prefill, from the CPU path's input to it,
+      and each of ``cut["steps"]`` teacher-forced decode steps (the
+      card's greedy tokens), from the CPU path's cache at that step, are
+      held card against CPU at ``LM_CORR`` / ``LM_REL`` (the sLSTM's
+      prefill is the decode step's function over the prompt).
+    """
+    import torch
+    from repro_torch.models import model
+    from repro_torch.serve import engine
+    cut_cfg, small = lm_cut_model(cfg, params, cut["layers"])
+    cpu_w = model.compute_copy(small)
+    card_w = model.compute_copy(small, device=device)
+    req = lm_request(cut_cfg, cut["batch"], cut["prompt"], seed=7)
+    p, v = cut["prompt"], cfg.vocab_size
+    cap = p + cut["steps"] + 8
+    eng = engine.ServeEngine(cut_cfg, small, max_seq_len=cap,
+                             q_chunk=q_chunk, device=device)
+    tokens = torch.as_tensor(
+        lm_generate(eng, req, cut["steps"])[:, p:]).long()
+    del eng
+
+    def deviation(got, want):
+        got = got[:, -1, :v].float().cpu().numpy().ravel()
+        want = want[:, -1, :v].float().cpu().numpy().ravel()
+        return (float(np.corrcoef(got, want)[0, 1]),
+                float(np.abs(got - want).max() / np.abs(want).max()))
+
+    worst = dict(corr=1.0, rel=0.0)
+
+    def held(what, got, want):
+        out = lm_hold(f"{label} (c) {what}", got, want)
+        worst.update(corr=min(worst["corr"], out["corr"]),
+                     rel=max(worst["rel"], out["rel"]))
+
+    with torch.inference_mode():
+        cpu_logits, cpu_caches = model.serve_prefill(
+            cut_cfg, cpu_w, lm_batch(req, "cpu"), q_chunk=q_chunk)
+        card_logits, _ = model.serve_prefill(
+            cut_cfg, card_w, lm_batch(req, device), q_chunk=q_chunk)
+        prefill = deviation(card_logits, cpu_logits)
+        # the CPU path against itself, one bfloat16 step in one input
+        row = int(req["tokens"][0, 0])
+        old = cpu_w.embed[row, 0].clone()
+        cpu_w.embed[row, 0] = torch.nextafter(
+            old, torch.tensor(100.0, dtype=old.dtype))
+        moved, _ = model.serve_prefill(cut_cfg, cpu_w, lm_batch(req, "cpu"),
+                                       q_chunk=q_chunk)
+        cpu_w.embed[row, 0] = old
+        own = deviation(moved, cpu_logits)
+        # each non-sLSTM layer's prefill from the CPU path's input
+        batch = lm_batch(req, "cpu")
+        x = model.embed_tokens(cut_cfg, cpu_w, batch)
+        b, s_len, _ = x.shape
+        ctx = dict(positions=torch.arange(
+                       s_len, dtype=torch.int32).expand(b, s_len),
+                   causal=True, q_chunk=q_chunk, rec_chunk=256,
+                   want_cache=True, enc_out=None)
+        card_ctx = dict(ctx, positions=ctx["positions"].to(device))
+        sigs, carried, _ = model.carried_inputs(
+            model.layer_groups(cut_cfg))
+        s = None
+        for i, (sig, carry) in enumerate(zip(sigs, carried)):
+            s_in = None if carry else s
+            nx, aux = model.apply_block(cut_cfg, sig, cpu_w.layers[i], x,
+                                        ctx, s_in)
+            if sig[0] != "slstm":
+                gx, gaux = model.apply_block(
+                    cut_cfg, sig, card_w.layers[i], x.to(device), card_ctx,
+                    None if s_in is None else s_in.to(device))
+                held(f"layer {i} ({sig[0]}) prefill output", gx, nx)
+                for j, (g, w) in enumerate(zip(
+                        gaux["cache"]["state"], aux["cache"]["state"])):
+                    held(f"layer {i} prefill state {j}", g, w)
+            x, s = nx, aux["sum"]
+        # each decode step from the CPU path's cache
+        cache = engine.prefill_to_decode_cache(cut_cfg, cpu_caches, p, cap)
+        for t in range(tokens.shape[1]):
+            card_cache = dict(cache, layers=[
+                {k: a.to(device) for k, a in e.items()}
+                for e in cache["layers"]])
+            tok = tokens[:, t:t + 1]
+            got, _ = model.decode_step(cut_cfg, card_w, tok.to(device),
+                                       card_cache)
+            want, cache = model.decode_step(cut_cfg, cpu_w, tok, cache)
+            held(f"step {t} from the CPU's cache", got[:, -1, :v],
+                 want[:, -1, :v])
+    return dict(worst, prefill=prefill, own=own)
 
 
 def lm_moe_holds(label, cfg, params, eng, req, capacity: int, q_chunk,
@@ -2313,17 +2437,19 @@ def lm_trace(fn, device) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    activity = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-                and not e.name.startswith("serve.")]
+    # the raw events: building ``prof.events()``' tree takes ~50 µs an
+    # event, minutes for a request of a few hundred thousand launches
+    activity = [e for e in prof.profiler.kineto_results.events()
+                if e.device_type() == DeviceType.CUDA
+                and not e.name().startswith("serve.")]
     kernels = [e for e in activity
-               if not e.name.startswith(("Memcpy", "Memset"))]
-    busy_us, reach = 0.0, float("-inf")
-    for lo, hi in sorted((e.time_range.start, e.time_range.end)
-                         for e in activity):
-        busy_us += max(0.0, hi - max(lo, reach))
+               if not e.name().startswith(("Memcpy", "Memset"))]
+    busy_ns, reach = 0, float("-inf")
+    for lo, hi in sorted((e.start_ns(), e.end_ns()) for e in activity):
+        busy_ns += max(0, hi - max(lo, reach))
         reach = max(reach, hi)
-    return dict(kernels=len(kernels), busy_ms=busy_us / 1e3,
-                wall_ms=wall_ms, idle=1.0 - busy_us / 1e3 / wall_ms)
+    return dict(kernels=len(kernels), busy_ms=busy_ns / 1e6,
+                wall_ms=wall_ms, idle=1.0 - busy_ns / 1e6 / wall_ms)
 
 
 def lm_serving_phase(device, rehearse: bool) -> dict:
@@ -2448,6 +2574,163 @@ def lm_serving_phase(device, rehearse: bool) -> dict:
             + f"; phase at {time.perf_counter() - t_phase:.3f} s")
         del eng, params
     return out
+
+
+#: the recurrent part of the LM phase: both recurrent models at full width
+#: and depth (batch, prompt, new tokens), and the depth hold (c) cuts them
+#: to (every block kind once: sLSTM + mLSTM; RG-LRU, RG-LRU, local
+#: attention); xlstm's sLSTM recurrence is chaotic at full width, so its
+#: hold (c) is stepwise (``lm_stepwise_hold``)
+LM_RECURRENT = (dict(arch="xlstm-1.3b", batch=8, prompt=512, new=64, cut=2,
+                     stepwise=True),
+                dict(arch="recurrentgemma-2b", batch=4, prompt=2048, new=64,
+                     cut=3, stepwise=False))
+
+
+def lm_decode_bytes(cfg, weights, batch: int, capacity: int) -> dict:
+    """The bytes one decode step must move: every weight it reads once
+    (the embedding gather's rows aside; the RG-LRU gate matrices' bfloat16
+    twins, which only the prefill reads, aside), every recurrent state
+    read and written, and each attention layer's KV cache (a local
+    layer's ring) read, with its new slot written."""
+    from repro_torch.models import model
+    w = sum(t.numel() * t.element_size()
+            for name, t in weights.named_parameters()
+            if not name.endswith("_bf16")
+            and (name != "embed" or cfg.tie_embeddings))
+    cache = model.init_cache(cfg, batch, capacity, device="meta")
+    states = kv = 0
+    for (kind, _), entry in zip(model.layer_sigs(cfg), cache["layers"]):
+        size = sum(t.numel() * t.element_size() for t in entry.values())
+        if kind in model.STATE_KEYS:
+            states += 2 * size
+        else:
+            kv += size + size // entry["k"].shape[1]
+    return dict(weights=w, states=states, kv=kv, total=w + states + kv)
+
+
+def lm_recurrent_phase(device, rehearse: bool) -> list:
+    """xlstm-1.3b and recurrentgemma-2b served at full width and depth
+    through ``ServeEngine``, each held as the module docstring says;
+    returns each model's numbers."""
+    import torch
+    from repro_torch.models import model
+    from repro_torch.serve import engine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    q_chunk = LM_MAIN["q_chunk"]
+    results = []
+    for cell in LM_RECURRENT:
+        cell, cut = dict(cell), dict(LM_CUT, layers=cell["cut"])
+        if rehearse:
+            cell.update(batch=2, prompt=24, new=4)
+            cut.update(prompt=16, steps=3)
+            q_chunk = 8
+        cfg = lm_config(cell["arch"], None, rehearse)
+        b, p, new = cell["batch"], cell["prompt"], cell["new"]
+        cap = p + new + 8
+        t0 = time.perf_counter()
+        marks = [("start", t0)]
+
+        params = model.make_params(cfg, seed=0, device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in params.parameters())
+        p_bytes = sum(t.numel() * t.element_size()
+                      for t in params.parameters())
+        eng = engine.ServeEngine(cfg, params, max_seq_len=cap,
+                                 q_chunk=q_chunk, device=device)
+        by_dtype = {}
+        for t in eng.weights.parameters():
+            key = str(t.dtype).split(".")[-1]
+            by_dtype[key] = by_dtype.get(key, 0) + t.numel() * t.element_size()
+        kinds = [kind for kind, _ in model.layer_sigs(cfg)]
+        label = f"lm {cfg.name}"
+        log(f"{label}: {cfg.num_layers} layers ("
+            + ", ".join(f"{kinds.count(k)} {k}" for k in dict.fromkeys(
+                kinds))
+            + f"), d_model {cfg.d_model}, {cfg.num_heads} heads, vocab "
+            f"{cfg.vocab_size} (padded {model.pad_vocab(cfg.vocab_size)}): "
+            f"{n_params} parameters, {p_bytes} bytes float32, initialised "
+            f"in {init_s:.3f} s; compute copy "
+            f"{sum(by_dtype.values())} bytes ("
+            + ", ".join(f"{k} {v}" for k, v in sorted(by_dtype.items()))
+            + ")")
+        marks.append(("init", time.perf_counter()))
+        req = lm_request(cfg, b, p, seed=0)
+        _, timing = lm_hold_a(label, eng, cfg, req, new)
+        marks.append(("(a)", time.perf_counter()))
+        step_ms = timing["decode_ms"] / new
+        moved = lm_decode_bytes(cfg, eng.weights, b, cap)
+        bound = moved["total"] / HBM_BYTES_PER_S * 1e3
+        traced = lm_trace(lambda: lm_generate(eng, req, new), device)
+        prefill_only = lm_trace(lambda: lm_generate(eng, req, 0), device)
+        marks.append(("traces", time.perf_counter()))
+        per_step = (None if traced["kernels"] is None else
+                    (traced["kernels"] - prefill_only["kernels"]) / new)
+        out = dict(arch=cfg.name, params=n_params,
+                   prefill_ms=timing["prefill_ms"], decode_step_ms=step_ms,
+                   prefill_tok_s=b * p / timing["prefill_ms"] * 1e3,
+                   decode_tok_s=b / step_ms * 1e3, bound_ms=bound,
+                   launches_per_step=per_step,
+                   launches_prefill=prefill_only["kernels"],
+                   idle=traced["idle"])
+        log(f"{label} serve: batch {b}, prompt {p}, {new} new tokens, 2 "
+            f"greedy requests: prefill {timing['prefill_ms']:.4f} ms "
+            f"({out['prefill_tok_s']:.1f} tokens/s), decode {step_ms:.4f} "
+            f"ms/step ({out['decode_tok_s']:.1f} tokens/s); decode bound "
+            f"{bound:.4f} ms ({moved['weights']} weight bytes + "
+            f"{moved['states']} bytes of recurrent state read and written "
+            f"+ {moved['kv']} bytes of KV ring = {moved['total']} bytes / "
+            f"3.35 TB/s); greedy repeatable, prompt echoed, ids < vocab")
+        untraced_ms = timing["prefill_ms"] + timing["decode_ms"]
+        out["idle_untraced"] = (None if traced["busy_ms"] is None
+                                else 1 - traced["busy_ms"] / untraced_ms)
+        log(f"{label} trace: one greedy request {traced['wall_ms']} ms wall "
+            f"under the profiler, device busy {traced['busy_ms']} ms, idle "
+            f"share {traced['idle']} (of the untraced request's "
+            f"{untraced_ms} ms on the card's clock: {out['idle_untraced']})"
+            f"; kernels {traced['kernels']}, {prefill_only['kernels']} of "
+            f"them in the prefill alone (prefill ms under the profiler "
+            f"{prefill_only['wall_ms']}): {per_step} launches per decode "
+            f"step")
+        corr_b = lm_prefill_vs_decode(cfg, eng.weights, req, device, cap,
+                                      q_chunk)
+        require(corr_b >= 0.999, f"{label} (b): prefill vs decode corr "
+                f"{corr_b} < 0.999")
+        out["corr_b"] = corr_b
+        marks.append(("(b)", time.perf_counter()))
+        del eng
+        cut_kinds = ", ".join(kinds[:cut["layers"]])
+        if cell["stepwise"]:
+            held_c = lm_stepwise_hold(label, cfg, params, device, q_chunk,
+                                      cut)
+            what = (f"(c) {cut['layers']} layers ({cut_kinds}) card vs cpu:"
+                    f" prefill logits corr {held_c['prefill'][0]:.7f}, max "
+                    f"diff / max {held_c['prefill'][1]:.5f} (not held: the "
+                    f"cpu path's own deviation under one bfloat16 step of "
+                    f"one embedding element is corr {held_c['own'][0]:.7f},"
+                    f" max diff / max {held_c['own'][1]:.5f}); the mLSTM "
+                    f"layer's prefill from the cpu's input and "
+                    f"{cut['steps']} teacher-forced steps each from the "
+                    f"cpu's cache")
+        else:
+            held_c = lm_cut_hold(label, cfg, params, device, q_chunk, cut)
+            what = (f"(c) {cut['layers']} layers ({cut_kinds}) card vs cpu,"
+                    f" prefill + {cut['steps']} teacher-forced steps")
+        out["held_c"] = held_c
+        marks.append(("(c)", time.perf_counter()))
+        log(f"{label} holds: (a) yes; (b) prefill(P) vs prefill(P-1) + "
+            f"decode corr {corr_b:.6f} (>= 0.999); {what}: min corr "
+            f"{held_c['corr']:.7f} (>= {LM_CORR}), max diff / max "
+            f"{held_c['rel']:.5f} (<= {LM_REL}); seconds: "
+            + ", ".join(f"{name} {t - marks[i][1]:.3f}"
+                        for i, (name, t) in enumerate(marks[1:]))
+            + f"; phase at {time.perf_counter() - t_phase:.3f} s")
+        del params
+        results.append(out)
+    return results
 
 
 def phase_done(name: str, t_start: float) -> None:
@@ -2592,6 +2875,8 @@ def main(argv=None) -> int:
     # LM serving: no hand-written kernel on this path (plain torch)
     lm_serving_phase(device, args.rehearse)
     phase_done("LM serving", t_start)
+    lm_recurrent_phase(device, args.rehearse)
+    phase_done("LM recurrent serving", t_start)
 
     log(f"chip_smoke elapsed {time.perf_counter() - t_start:.3f} s")
     if args.rehearse:

@@ -1,10 +1,12 @@
 """Serving demo on the PyTorch/CUDA port: batched prefill + decode
 generation with KV-cache management (ring buffers for local-attention
-layers).
+layers) and, for the recurrent architectures (xlstm-1.3b,
+recurrentgemma-2b), their mLSTM, sLSTM and RG-LRU states.
 
     PYTHONPATH=src python examples/serve_lm_torch.py                # card
     PYTHONPATH=src python examples/serve_lm_torch.py --device cpu   # host
     PYTHONPATH=src python examples/serve_lm_torch.py --arch seamless-m4t-medium
+    PYTHONPATH=src python examples/serve_lm_torch.py --arch xlstm-1.3b
 
 The model is the architecture's reduced config with random weights; the
 engine runs on the CUDA device unless given ``--device cpu``.

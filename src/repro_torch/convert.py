@@ -90,8 +90,10 @@ def lm_params_from_reference(cfg, tree, num_layers: int | None = None
     of numpy arrays (``jax.tree.map(np.asarray, make_params(cfg))``).
 
     Each scanned group's leaves are un-stacked over their leading
-    ``reps`` axis into ``layers.{i}``, in ``_group_layer_params`` order;
-    the encoder's stacked blocks into ``encoder.layers.{i}``.
+    ``reps`` axis into ``layers.{i}``, in ``_group_layer_params`` order
+    (the recurrent blocks' ``(nb, 4, 4)`` q/k/v and ``(H, hd, 4·hd)``
+    recurrent weights among them); the encoder's stacked blocks into
+    ``encoder.layers.{i}``.
     """
     sd = _flat_items("", {k: v for k, v in tree.items()
                           if k in ("embed", "lm_head", "out_norm")}, {})
@@ -110,10 +112,12 @@ def lm_cache_from_reference(cfg, cache):
     """The port's copy of a JAX package cache, as torch tensors on the
     CPU.
 
-    A decode cache (``{"pos", "layers"}``, one entry per layer) becomes
-    ``{"pos": int, "layers": [...]}``; ``serve_prefill``'s caches (a list
-    per layer group, leaves stacked over a scanned group's repeats)
-    become the port's per-layer list, in layer order.
+    A decode cache (``{"pos", "layers"}``, one entry per layer, a
+    recurrent layer's state under its names) becomes ``{"pos": int,
+    "layers": [...]}``; ``serve_prefill``'s caches (a list per layer
+    group, leaves stacked over a scanned group's repeats; a recurrent
+    layer's ``{"state": (...)}`` tuple included) become the port's
+    per-layer list, in layer order.
     """
     if isinstance(cache, dict):
         return {"pos": int(np.asarray(cache["pos"])),

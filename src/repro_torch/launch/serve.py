@@ -6,6 +6,9 @@
         --no-reduced --prompt-len 512 --new-tokens 64   # full config
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
         --device cpu                               # plain torch on the host
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch recurrentgemma-2b --no-reduced --prompt-len 2048 \\
+        --batch 4 --new-tokens 64       # recurrent: RG-LRU + local attention
 
 The port of ``repro.launch.serve``.  Its ``--reduced`` is on by default
 as the reference's is, but ``--no-reduced`` turns it off (the reference's

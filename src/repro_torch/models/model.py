@@ -1,5 +1,6 @@
-"""Model assembly for the attention architectures: dense, MoE,
-vision-language (M-RoPE) and encoder-decoder.
+"""Model assembly for all 10 architectures: dense, MoE, vision-language
+(M-RoPE), encoder-decoder and the recurrent ones (xLSTM's mLSTM and sLSTM,
+RecurrentGemma's RG-LRU with local attention).
 
 The port of ``repro.models.model``'s serving path.  The reference groups
 layers of one signature into stacked, scanned supergroups; the port keeps
@@ -14,11 +15,8 @@ parameter tree into the port's layers in :func:`_group_layer_params`
 order.
 
 Parameters are float32 and activations bfloat16; every matmul casts its
-weight to the activation dtype, so a bfloat16 copy of the matrices (norm
-scales kept in float32) computes the same numbers.
-
-The recurrent kinds (``mlstm``, ``slstm``, ``rglru``) are not ported yet:
-they raise ``NotImplementedError`` (ROADMAP queue 1, recurrent serving).
+weight to the activation dtype, so a copy of the weights in the dtype
+each is read in (:func:`compute_copy`) computes the same numbers.
 """
 
 from __future__ import annotations
@@ -32,21 +30,21 @@ from repro_torch.core.engine import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import recurrent as rec_mod
 from repro_torch.models.common import (
     ParamDef, ParamTree, apply_norm, init_params, norm_schema, pad_vocab,
     tree_paths)
 
 Sig = tuple  # (mixer_kind, ffn_kind)
 
-RECURRENT_KINDS = ("mlstm", "slstm", "rglru")
 #: the norm subtrees, whose parameters the forward applies in float32
 NORMS = ("norm1", "norm2", "norm_cross", "out_norm")
-
-
-def _not_ported(kind: str):
-    return NotImplementedError(
-        f"the {kind!r} block is not ported yet (ROADMAP queue 1: recurrent "
-        f"serving, models/recurrent.py)")
+#: a recurrent block's state tuple, by the names of its decode cache entry
+STATE_KEYS = {"mlstm": ("c", "n", "m"), "slstm": ("c", "n", "h", "m"),
+              "rglru": ("conv", "h")}
+_INIT_STATE = {"mlstm": rec_mod.mlstm_init_state,
+               "slstm": rec_mod.slstm_init_state,
+               "rglru": rec_mod.rglru_init_state}
 
 
 # ---------------------------------------------------------- layer grouping
@@ -96,8 +94,12 @@ def layer_groups(cfg: ArchConfig,
 def _mixer_schema(cfg, kind):
     if kind in ("attn", "local_attn"):
         return attn_mod.attn_schema(cfg)
-    if kind in RECURRENT_KINDS:
-        raise _not_ported(kind)
+    if kind == "mlstm":
+        return rec_mod.mlstm_schema(cfg)
+    if kind == "slstm":
+        return rec_mod.slstm_schema(cfg)
+    if kind == "rglru":
+        return rec_mod.rglru_schema(cfg)
     raise ValueError(kind)
 
 
@@ -210,22 +212,31 @@ def make_params(cfg: ArchConfig, seed: int = 0,
 
 def compute_copy(model: LanguageModel, device=None) -> LanguageModel:
     """A copy of ``model`` on ``device`` (``model``'s when not given)
-    whose matrices, embedding and biases are in bfloat16 and whose norm
-    parameters stay float32: the forward casts each weight to the
-    activation dtype at use, so this copy computes the same numbers
-    without a cast per step."""
+    holding each leaf in the dtype the forward reads it in: float32 for
+    the norms and the recurrent blocks' gate biases, recurrent weights,
+    norm scales, conv and decay (``recurrent.F32_LEAVES``), bfloat16 for
+    every other matrix, embedding and bias.  The two RG-LRU gate
+    matrices, read in float32 by the decode step and in bfloat16 by the
+    prefill, are kept in float32 with a bfloat16 twin (``<name>_bf16``).
+    The forward casts each weight to its dtype at use, so this copy
+    computes the same numbers without a cast per step."""
     device = model.embed.device if device is None else torch.device(device)
     out = LanguageModel(model.cfg, len(model.layers), device="meta")
     for path, tree in out.named_modules():
         if not isinstance(tree, ParamTree):
             continue
         src = model.get_submodule(path)
-        keep = path.rsplit(".", 1)[-1] in NORMS
-        for name in tree.inits:
+        norm = path.rsplit(".", 1)[-1] in NORMS
+        for name in list(tree.inits):
             w = src[name].detach()
+            keep = norm or name in rec_mod.F32_LEAVES | \
+                rec_mod.TWO_DTYPE_LEAVES
             tree._parameters[name] = nn.Parameter(
                 w.to(device) if keep else w.to(device, torch.bfloat16),
                 requires_grad=False)
+            if name in rec_mod.TWO_DTYPE_LEAVES:
+                tree._parameters[f"{name}_bf16"] = nn.Parameter(
+                    w.to(device, torch.bfloat16), requires_grad=False)
     return out
 
 
@@ -237,12 +248,27 @@ def _residual(x, y):
     return s.to(x.dtype), s
 
 
-def apply_block(cfg, sig: Sig, p, x, ctx):
-    """One block, full-sequence mode. Returns (x, aux)."""
+def _recurrent_block(cfg, kind, p, h, *, state=None, decode=False,
+                     chunk: int = 256):
+    """The recurrent block of ``kind`` over ``h`` -> (y, its state); the
+    sLSTM decodes as its block over one position."""
+    if kind == "mlstm":
+        return rec_mod.mlstm_block(cfg, p, h, chunk=chunk, state=state,
+                                   decode=decode)
+    if kind == "slstm":
+        return rec_mod.slstm_block(cfg, p, h, state=state)
+    return rec_mod.rglru_block(cfg, p, h, state=state, decode=decode)
+
+
+def apply_block(cfg, sig: Sig, p, x, ctx, s=None):
+    """One block, full-sequence mode; its first norm reads ``s``, the
+    float32 sum the previous block left, when given, else ``x``.
+    Returns (x, aux); ``aux["sum"]`` is the float32 sum of the block's
+    last residual."""
     kind, ffn_kind = sig
     metrics = {}
     cache = {}
-    h = apply_norm(cfg, p["norm1"], x)
+    h = apply_norm(cfg, p["norm1"], x if s is None else s).to(x.dtype)
     if kind in ("attn", "local_attn"):
         window = cfg.window if kind == "local_attn" else 0
         y, k, v = attn_mod.attention_kv(
@@ -251,8 +277,10 @@ def apply_block(cfg, sig: Sig, p, x, ctx):
             q_chunk=ctx["q_chunk"])
         if ctx["want_cache"]:
             cache = {"k": k, "v": v}
-    elif kind in RECURRENT_KINDS:
-        raise _not_ported(kind)
+    elif kind in STATE_KEYS:
+        y, state = _recurrent_block(cfg, kind, p["mixer"], h,
+                                    chunk=ctx["rec_chunk"])
+        cache = {"state": state} if ctx["want_cache"] else {}
     else:
         raise ValueError(kind)
     x, s = _residual(x, y)
@@ -271,8 +299,8 @@ def apply_block(cfg, sig: Sig, p, x, ctx):
             metrics.update(moe_metrics)
         else:
             y2 = ffn_mod.apply_ffn(cfg, p["ffn"], h2)
-        x = x + y2
-    return x, {"metrics": metrics, "cache": cache}
+        x, s = _residual(x, y2)
+    return x, {"metrics": metrics, "cache": cache, "sum": s}
 
 
 def _zero_metrics(cfg, device):
@@ -311,15 +339,43 @@ def _positions_for(cfg, batch, b, s, device):
     return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
 
 
-def run_stack(cfg, layers, sigs, x, ctx):
-    """Apply each layer in turn -> (x, summed metrics, per-layer caches)."""
+def carried_inputs(groups) -> tuple[list, list, bool]:
+    """(each layer's signature, whether its first norm reads the rounded
+    residual, whether the final norm does), ``groups`` being the
+    reference's (``layer_groups``).
+
+    The reference's compiled program keeps a residual sum unrounded up to
+    the next norm wherever no scan boundary lies between them; a scan's
+    carry (the first block of each repeat of a scanned group, and the
+    block after one) and the embedding are rounded to bfloat16.
+    """
+    sigs, reads_carry = [], []
+    scanned = True                          # the embedding is rounded
+    for chunk, reps in groups:
+        for r in range(reps):
+            for i, sig in enumerate(chunk):
+                sigs.append(sig)
+                reads_carry.append(i == 0 and (reps > 1 or (
+                    r == 0 and scanned)))
+        scanned = reps > 1
+    return sigs, reads_carry, scanned
+
+
+def run_stack(cfg, layers, groups, x, ctx):
+    """Apply each layer in turn, ``groups`` being the reference's
+    (``layer_groups``) -> (x, the float32 sum the final norm reads or
+    ``None`` when it reads ``x`` (:func:`carried_inputs`), summed
+    metrics, per-layer caches)."""
     metrics = _zero_metrics(cfg, x.device)
     caches = []
-    for sig, p in zip(sigs, layers):
-        x, aux = apply_block(cfg, sig, p, x, ctx)
+    sigs, reads_carry, scanned = carried_inputs(groups)
+    s = None
+    for sig, p, carry in zip(sigs, layers, reads_carry):
+        x, aux = apply_block(cfg, sig, p, x, ctx, None if carry else s)
+        s = aux["sum"]
         metrics = _merge_metrics(metrics, aux["metrics"])
         caches.append(aux["cache"])
-    return x, metrics, caches
+    return x, None if scanned else s, metrics, caches
 
 
 def encode(cfg, params, src_embeds, *, q_chunk: int = 512):
@@ -332,30 +388,33 @@ def encode(cfg, params, src_embeds, *, q_chunk: int = 512):
     ctx = dict(positions=positions, causal=False, q_chunk=q_chunk,
                want_cache=False, enc_out=None)
     enc = params["encoder"]
-    sigs = [layer_sigs(cfg, 1)[0]] * cfg.encoder_layers
-    x, _, _ = run_stack(cfg, enc.layers, sigs, src, ctx)
-    return apply_norm(cfg, enc["out_norm"], x), positions
+    groups = [([layer_sigs(cfg, 1)[0]], cfg.encoder_layers)]
+    x, s, _, _ = run_stack(cfg, enc.layers, groups, src, ctx)
+    return (apply_norm(cfg, enc["out_norm"], x if s is None else s).to(
+        x.dtype), positions)
 
 
 def forward(cfg: ArchConfig, params, batch, *, q_chunk: int = 512,
-            want_cache: bool = False, moe_groups: int = 1, enc_out=None):
+            rec_chunk: int = 256, want_cache: bool = False,
+            moe_groups: int = 1, enc_out=None):
     """Full-sequence forward -> (final hidden states, metrics, per-layer
     caches).  An encoder-decoder encodes ``batch["src_embeds"]`` unless
-    given its ``enc_out`` (from :func:`encode`)."""
+    given its ``enc_out`` (from :func:`encode`).  ``rec_chunk`` is the
+    mLSTM's chunk length."""
     x = embed_tokens(cfg, params, batch)
     b, s, _ = x.shape
     ctx = dict(positions=_positions_for(cfg, batch, b, s, x.device),
-               causal=True, q_chunk=q_chunk, want_cache=want_cache,
-               enc_out=None, moe_groups=moe_groups)
+               causal=True, q_chunk=q_chunk, rec_chunk=rec_chunk,
+               want_cache=want_cache, enc_out=None, moe_groups=moe_groups)
     if cfg.is_encdec:
         if enc_out is None:
             enc_out = encode(cfg, params, batch["src_embeds"],
                              q_chunk=q_chunk)
         ctx["enc_out"], ctx["enc_positions"] = enc_out
-    x, metrics, caches = run_stack(cfg, params.layers,
-                                   layer_sigs(cfg, len(params.layers)), x,
-                                   ctx)
-    x = apply_norm(cfg, params["out_norm"], x)
+    x, s, metrics, caches = run_stack(
+        cfg, params.layers, layer_groups(cfg, len(params.layers)), x, ctx)
+    x = apply_norm(cfg, params["out_norm"], x if s is None else s).to(
+        x.dtype)
     return x, metrics, caches
 
 
@@ -372,12 +431,13 @@ def _mask_padded_vocab(cfg, logits):
 
 
 def serve_prefill(cfg: ArchConfig, params, batch, *, q_chunk: int = 512,
-                  moe_groups: int = 1, enc_out=None):
+                  rec_chunk: int = 256, moe_groups: int = 1, enc_out=None):
     """Prefill: full forward -> (last-position logits (B, 1, V_pad), the
-    padded vocab masked to ``NEG_INF``; per-layer caches)."""
+    padded vocab masked to ``NEG_INF``; per-layer caches: ``{"k", "v"}``
+    for attention, ``{"state": (...)}`` for a recurrent block)."""
     x, _, caches = forward(cfg, params, batch, q_chunk=q_chunk,
-                           want_cache=True, moe_groups=moe_groups,
-                           enc_out=enc_out)
+                           rec_chunk=rec_chunk, want_cache=True,
+                           moe_groups=moe_groups, enc_out=enc_out)
     logits = logits_from_hidden(cfg, params, x[:, -1:])
     return _mask_padded_vocab(cfg, logits), caches
 
@@ -388,11 +448,13 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
                src_len: int = 0, dtype=torch.bfloat16,
                kv_quant: bool = False, device=None) -> dict:
     """Zeroed decode cache: ``{"pos": 0, "layers": [one dict per
-    layer]}``."""
+    layer]}``; a recurrent layer's entry holds its initial state."""
     layers = []
     for kind, _ in layer_sigs(cfg):
-        if kind in RECURRENT_KINDS:
-            raise _not_ported(kind)
+        if kind in STATE_KEYS:
+            layers.append(dict(zip(STATE_KEYS[kind], _INIT_STATE[kind](
+                cfg, batch, device))))
+            continue
         window = cfg.window if kind == "local_attn" else 0
         entry = attn_mod.init_kv_cache(cfg, batch, seq_len, window,
                                        dtype, kv_quant=kv_quant,
@@ -409,6 +471,8 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
     return fn(tree)
 
 
@@ -429,19 +493,24 @@ def _group_layer_params(cfg, params, num_layers: int | None = None):
 
 def decode_step(cfg: ArchConfig, params, token, cache):
     """One-token decode. token: (B, 1) int. Returns (logits, cache); the
-    cache is updated in place and its ``pos`` advanced."""
+    cache is updated in place (a recurrent layer's entry gets its new
+    state) and its ``pos`` advanced."""
     pos = cache["pos"]
     x = params["embed"][token.long()].to(torch.bfloat16)
     s = x                           # what the next norm reads
     sigs = layer_sigs(cfg, len(params.layers))
     for (kind, ffn_kind), p, entry in zip(sigs, params.layers,
                                           cache["layers"]):
-        if kind in RECURRENT_KINDS:
-            raise _not_ported(kind)
         h = apply_norm(cfg, p["norm1"], s).to(x.dtype)
-        window = cfg.window if kind == "local_attn" else 0
-        y, _ = attn_mod.decode_attention(cfg, p["mixer"], h, entry, pos,
-                                         layer_window=window)
+        if kind in STATE_KEYS:
+            y, state = _recurrent_block(
+                cfg, kind, p["mixer"], h, decode=True,
+                state=tuple(entry[key] for key in STATE_KEYS[kind]))
+            entry.update(zip(STATE_KEYS[kind], state))
+        else:
+            window = cfg.window if kind == "local_attn" else 0
+            y, _ = attn_mod.decode_attention(cfg, p["mixer"], h, entry,
+                                             pos, layer_window=window)
         x, s = _residual(x, y)
         if "cross_attn" in p:
             hc = apply_norm(cfg, p["norm_cross"], s).to(x.dtype)

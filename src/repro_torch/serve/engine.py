@@ -2,8 +2,9 @@
 
 The port of ``repro.serve.engine``: a prefill, a conversion of its caches
 to the decode layout (local-attention layers into ring buffers, an
-encoder-decoder's cross K/V projected once from the encoder output), and
-greedy / temperature sampling, all in eager torch on one device.
+encoder-decoder's cross K/V projected once from the encoder output, a
+recurrent block's state carried over), and greedy / temperature
+sampling, all in eager torch on one device.
 
 Differences by design from the reference:
 
@@ -13,9 +14,10 @@ Differences by design from the reference:
 * Sampling at a temperature draws from a ``torch.Generator`` seeded per
   call (``torch.multinomial``), which cannot give ``jax.random``'s draws;
   greedy decoding (``argmax``) is the part held to the reference.
-* The engine computes with a bfloat16 copy of the weights made once
-  (norm parameters in float32; ``compute_copy``), the numbers the
-  reference gets by casting each weight at use.
+* The engine computes with a copy of the weights made once, each leaf
+  in the dtype the forward reads it in (bfloat16 matrices; norms and the
+  recurrent blocks' float32 leaves in float32; ``compute_copy``), the
+  numbers the reference gets by casting each weight at use.
 * On the card the engine turns off cuBLAS's reduced-precision bfloat16
   reduction (``allow_bf16_reduced_precision_reduction``, process-wide), so
   products accumulate in float32 as XLA's do.
@@ -34,8 +36,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.engine import resolve_device
 from repro_torch.models.attention import _proj
 from repro_torch.models.model import (
-    RECURRENT_KINDS, _not_ported, compute_copy, decode_step, encode,
-    layer_sigs, serve_prefill)
+    STATE_KEYS, compute_copy, decode_step, encode, layer_sigs,
+    serve_prefill)
 
 
 def _ring_place(k, capacity: int):
@@ -54,15 +56,20 @@ def prefill_to_decode_cache(cfg: ArchConfig, caches, prefill_len: int,
                             capacity: int, enc_out=None, params=None):
     """Convert ``serve_prefill``'s per-layer caches into the
     ``decode_step`` layout: ``{"pos": prefill_len, "layers": [...]}``,
-    each buffer a fresh bfloat16 tensor the decode may write in place.
-    An encoder-decoder's entries also get ``cross_k``/``cross_v``,
-    projected from ``enc_out`` with ``params``' cross-attention weights.
+    each attention buffer a fresh bfloat16 tensor the decode may write in
+    place (a local-attention layer's placed in a ring of ``min(capacity,
+    window)`` slots), each recurrent state carried over under its names
+    (``model.STATE_KEYS``; the decode replaces them with the next
+    states, writing none in place).  An encoder-decoder's entries also get
+    ``cross_k``/``cross_v``, projected from ``enc_out`` with ``params``'
+    cross-attention weights.
     """
     layers = []
     for i, ((kind, _), entry) in enumerate(
             zip(layer_sigs(cfg, len(caches)), caches)):
-        if kind in RECURRENT_KINDS:
-            raise _not_ported(kind)
+        if kind in STATE_KEYS:
+            layers.append(dict(zip(STATE_KEYS[kind], entry["state"])))
+            continue
         window = cfg.window if kind == "local_attn" else 0
         cap = min(capacity, window) if window else capacity
         new = {"k": _ring_place(entry["k"].to(torch.bfloat16), cap),

@@ -35,7 +35,8 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.analysis.report, repro_torch.configs, "
             "repro_torch.configs.registry, repro_torch.models.common, "
             "repro_torch.models.ffn, repro_torch.models.attention, "
-            "repro_torch.models.moe, repro_torch.models.model, "
+            "repro_torch.models.moe, repro_torch.models.recurrent, "
+            "repro_torch.models.model, "
             "repro_torch.serve.engine, repro_torch.launch.serve\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
             "'repro') or m.startswith(('jax.', 'jaxlib.', 'repro.')))\n"
@@ -64,7 +65,8 @@ def test_port_sources_exist():
                 "configs/__init__.py", "configs/base.py",
                 "configs/registry.py", "models/__init__.py",
                 "models/common.py", "models/ffn.py", "models/attention.py",
-                "models/moe.py", "models/model.py", "serve/__init__.py",
+                "models/moe.py", "models/recurrent.py", "models/model.py",
+                "serve/__init__.py",
                 "serve/engine.py", "launch/__init__.py", "launch/serve.py"):
         assert f"repro_torch/{mod}" in names, mod
 

@@ -7,8 +7,8 @@ sum matrix products in different orders, which moves float32 results in
 the last digits, never by 1e-5 at these widths.  The MoE's integer
 metrics (``expert_load``, ``dropped_tokens``) and an int8 KV cache must be
 exactly equal.  Layer signatures, groups and the full configs' parameter
-counts must be equal for every registered architecture; the recurrent
-ones must raise in the port.
+counts must be equal for every registered architecture, and so must the
+recurrent architectures' parameter and cache trees.
 """
 
 import dataclasses
@@ -284,14 +284,17 @@ def test_layer_structure(arch):
         ref_cfg.reduced())
 
 
+#: the full recurrent configs' parameter counts
+RECURRENT_COUNTS = {"xlstm-1.3b": 1_493_776_720,
+                    "recurrentgemma-2b": 3_549_841_920}
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_param_counts(arch):
     """Full configs, counted from the schema without allocation."""
     ref_cfg, cfg = ref_get_config(arch), get_config(arch)
     if arch in RECURRENT:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cfg.param_count()
-        return
+        assert cfg.param_count() == RECURRENT_COUNTS[arch]
     assert cfg.param_count() == ref_cfg.param_count()
     assert cfg.active_param_count() == ref_cfg.active_param_count()
 
@@ -305,14 +308,34 @@ def test_registry_is_the_reference_registry():
 
 @pytest.mark.parametrize("arch", RECURRENT)
 def test_recurrent_blocks_raise(arch):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.make_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.init_cache(cfg, 1, 8)
+    """(The name is the one this test had while the recurrent blocks
+    raised.)  The recurrent configs' parameters and decode cache are built
+    and shaped as the reference builds them: every leaf of ``make_params``
+    (un-stacked per layer) and every entry of ``init_cache`` with the
+    reference's shape and dtype, the initial states equal."""
+    ref_cfg, cfg = configs(arch)
+    params = model.make_params(cfg, device="cpu")
+    ref_tree = jax.eval_shape(lambda: ref_model.make_params(ref_cfg))
+    from repro_torch.convert import lm_params_from_reference
+    want = lm_params_from_reference(cfg, jax.tree.map(
+        lambda a: np.zeros(a.shape, a.dtype), ref_tree))
+    got = params.state_dict()
+    assert sorted(got) == sorted(want)
+    for name, t in got.items():
+        assert t.shape == want[name].shape and t.dtype == torch.float32, name
+    cache = model.init_cache(cfg, 2, 8, device="cpu")
+    ref_cache = jax.jit(lambda: ref_model.init_cache(ref_cfg, 2, 8))()
+    assert cache["pos"] == 0 and len(cache["layers"]) == cfg.num_layers
+    for got_e, want_e in zip(cache["layers"], ref_cache["layers"]):
+        assert sorted(got_e) == sorted(want_e)
+        for key, val in want_e.items():
+            assert got_e[key].shape == val.shape, key
+            np.testing.assert_array_equal(got_e[key].float().numpy(),
+                                          np.asarray(val, np.float32))
+            assert str(got_e[key].dtype).split(".")[-1] == str(val.dtype)
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCHS if a not in RECURRENT])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_module_matches_the_schema(arch):
     """The port's per-layer module holds the reference schema's leaves,
     un-stacked: the same names and sizes, the same total."""

@@ -66,6 +66,12 @@ def test_rehearsal_runs_every_phase_and_reports_nothing():
                   "lm granite-moe-3b-a800m x2:",
                   "lm qwen2-vl-2b x2:", "lm seamless-m4t-medium x2:",
                   "phase LM serving done",
+                  "lm xlstm-1.3b serve:", "lm xlstm-1.3b trace:",
+                  "lm xlstm-1.3b holds: (a) yes; (b)",
+                  "lm recurrentgemma-2b serve:",
+                  "lm recurrentgemma-2b trace:",
+                  "lm recurrentgemma-2b holds: (a) yes; (b)",
+                  "phase LM recurrent serving done",
                   "rehearsal complete"):
         assert phase in out.stdout, phase
     assert '"ok"' not in out.stdout
