@@ -2428,7 +2428,8 @@ def lm_trace(fn, device) -> dict:
     from torch.autograd import DeviceType
     if device.type != "cuda":
         fn()
-        return dict(kernels=None, busy_ms=None, wall_ms=None, idle=None)
+        return dict(kernels=None, busy_ms=None, wall_ms=None, idle=None,
+                    top=[])
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
@@ -2448,8 +2449,14 @@ def lm_trace(fn, device) -> dict:
     for lo, hi in sorted((e.start_ns(), e.end_ns()) for e in activity):
         busy_ns += max(0, hi - max(lo, reach))
         reach = max(reach, hi)
+    by_name = {}
+    for e in kernels:
+        ms, n = by_name.get(e.name(), (0.0, 0))
+        by_name[e.name()] = (ms + (e.end_ns() - e.start_ns()) / 1e6, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return dict(kernels=len(kernels), busy_ms=busy_ns / 1e6,
-                wall_ms=wall_ms, idle=1.0 - busy_ns / 1e6 / wall_ms)
+                wall_ms=wall_ms, idle=1.0 - busy_ns / 1e6 / wall_ms,
+                top=top)
 
 
 def lm_serving_phase(device, rehearse: bool) -> dict:
@@ -2733,6 +2740,306 @@ def lm_recurrent_phase(device, rehearse: bool) -> list:
     return results
 
 
+#: the LM training phase: qwen2-0.5b at full width and depth on
+#: train_4k's sequence length (micro-batch, accumulation, steps,
+#: checkpoint interval, the step whose first attempt fails), with remat
+LM_TRAIN = dict(arch="qwen2-0.5b", seq=4096, micro=2, grad_accum=4, steps=8,
+                ckpt_every=4, fail_at=4, q_chunk=512)
+#: the card's dense bfloat16 peak (NVIDIA's H100 SXM data sheet)
+BF16_FLOPS_PER_S = 989e12
+#: holds (b)/(c): each config cut at full width (arch, changes), one
+#: batch of (rows, positions), card against the CPU path
+LM_TRAIN_CUTS = (("qwen2-0.5b", dict(num_layers=2)),
+                 ("granite-moe-3b-a800m", dict(num_layers=2)),
+                 ("recurrentgemma-2b", dict(num_layers=3)),
+                 ("xlstm-1.3b", dict(num_layers=2, block_pattern=("mlstm",))))
+LM_TRAIN_CUT_SHAPE = (1, 512)
+#: hold (b) for the attention biases (``bq``/``bk``/``bv``): each is added
+#: in bfloat16, so its gradient is a bfloat16 sum over the positions
+LM_TRAIN_BIAS_CORR = 0.9998
+#: hold (d): the replay checked on qwen2-0.5b cut to 2 layers (steps,
+#: checkpoint interval, failing step, rows, positions)
+LM_TRAIN_REPLAY = dict(steps=4, ckpt_every=2, fail_at=3, rows=2, seq=512)
+
+
+def lm_train_flops(cfg, n_params: int, tokens: int, seq: int) -> float:
+    """Model FLOPs of one training step: 6 · parameters · tokens for the
+    matrices (the tied embedding counted once, as the head), plus
+    attention's 12 · layers · heads · head_dim · seq per token (scores
+    and values, forward and backward, the causal mask not subtracted);
+    remat's recomputation not counted."""
+    attn = 12 * cfg.num_layers * cfg.num_heads * cfg.head_dim * seq
+    return float(tokens) * (6 * n_params + attn)
+
+
+def lm_corr_rel(got, want) -> tuple[float, float]:
+    """(correlation, max |got - want| / max |want|) of two tensors on one
+    device, in float64 there (a 655M-element leaf in seconds)."""
+    g, w = got.double().ravel(), want.double().ravel()
+    scale = float(w.abs().max())
+    if scale == 0:
+        return float(not bool(g.abs().any())), 0.0
+    gc, wc = g - g.mean(), w - w.mean()
+    corr = float((gc @ wc) / ((gc @ gc) * (wc @ wc)).sqrt())
+    return corr, float((g - w).abs().max()) / scale
+
+
+def lm_grad_hold(label, cfg, changes, device, shape, q_chunk) -> str:
+    """Holds (b)/(c): ``cfg`` cut by ``changes`` at full width, seeded
+    weights made on the card and copied to the CPU; one batch's loss and
+    every leaf's gradient, card against the CPU path, at ``LM_CORR``
+    (``LM_TRAIN_BIAS_CORR`` for the attention biases).  An MoE config's
+    router reads bfloat16 activations that the two paths round apart, so
+    a token near a tie routes to another expert on each: its gradients
+    are printed, not held, and its loss, ``moe_aux_loss`` and
+    ``dropped_tokens`` are held instead."""
+    import dataclasses
+    import torch
+    from repro_torch.data import DataConfig, TokenPipeline, device_batch
+    from repro_torch.models import model
+    cut = dataclasses.replace(cfg, **changes)
+    rows, seq = shape
+    card_m = model.make_params(cut, seed=0, device=device, trainable=True)
+    cpu_m = model.LanguageModel(cut, device="cpu").requires_grad_()
+    cpu_m.load_state_dict(card_m.state_dict())
+    batch = TokenPipeline(DataConfig(vocab_size=cut.vocab_size, batch=rows,
+                                     seq_len=seq)).batch_at(0)
+    out = {}
+    for where, m in (("cpu", cpu_m), ("card", card_m)):
+        t0 = time.perf_counter()
+        loss, metrics = model.loss_fn(
+            cut, m, device_batch(batch, m.embed.device), q_chunk=q_chunk,
+            rec_chunk=256)
+        names, leaves = zip(*m.named_parameters())
+        grads = torch.autograd.grad(loss, leaves)
+        out[where] = (loss.item(), {k: v.detach().cpu() for k, v in
+                                    metrics.items()},
+                      dict(zip(names, grads)), time.perf_counter() - t0)
+    (l_cpu, m_cpu, g_cpu, s_cpu), (l_card, m_card, g_card, s_card) = (
+        out["cpu"], out["card"])
+    require(np.isfinite(l_card) and all(bool(torch.isfinite(g).all())
+                                        for g in g_card.values()),
+            f"{label}: loss or gradients not finite on the card")
+    d_loss = abs(l_card - l_cpu) / abs(l_cpu)
+    require(d_loss <= 1e-3, f"{label}: loss card {l_card} vs cpu {l_cpu}")
+    worst, worst_rel, worst_name = float("inf"), 0.0, ""
+    for name, want in g_cpu.items():
+        corr, rel = lm_corr_rel(g_card[name], want.to(device))
+        bound = (LM_TRAIN_BIAS_CORR if name.rsplit(".", 1)[-1] in (
+            "bq", "bk", "bv") else LM_CORR)
+        require(cut.is_moe or corr >= bound, f"{label}: gradient of {name} "
+                f"card vs cpu corr {corr} < {bound}")
+        if corr < worst:
+            worst, worst_name = corr, name
+        worst_rel = max(worst_rel, rel)
+    held = (f"min corr {worst:.7f} ({worst_name}; >= {LM_CORR}, the "
+            f"attention biases >= {LM_TRAIN_BIAS_CORR})")
+    if cut.is_moe:
+        held = (f"min corr {worst:.7f} ({worst_name}), "
+                + ", ".join(f"{key} card {float(m_card[key])} cpu "
+                            f"{float(m_cpu[key])}" for key in (
+                                "moe_aux_loss", "dropped_tokens"))
+                + " (not held: bfloat16 router logits round apart, so "
+                  "tokens near a tie route differently)")
+    kinds = ", ".join(k for k, _ in model.layer_sigs(cut))
+    return (f"{label} {cut.num_layers} layers ({kinds}), batch {rows} x "
+            f"{seq}: loss card {l_card:.6f} cpu {l_cpu:.6f} (|d| / loss "
+            f"{d_loss:.2e} <= 1e-3); {len(g_cpu)} leaves' gradients {held},"
+            f" max diff / max {worst_rel:.5f}; seconds card {s_card:.3f} "
+            f"cpu {s_cpu:.3f}")
+
+
+def lm_train_run(cfg, device, steps, ckpt_every, fail_at, rows, seq,
+                 grad_accum, q_chunk, ckpt_dir: Path, on_step=None):
+    """``steps`` AdamW steps of ``cfg`` (seeded weights, remat) under the
+    port's ``Coordinator``, checkpoints every ``ckpt_every`` steps into
+    ``ckpt_dir``, the first attempt of step ``fail_at`` (None: none)
+    failing after its update -> (final state, history, coordinator)."""
+    import shutil
+    from repro_torch.data import DataConfig, TokenPipeline, device_batch
+    from repro_torch.models import model
+    from repro_torch.train import (
+        CheckpointManager, Coordinator, OptConfig, build_train_step,
+        init_state)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    params = model.make_params(cfg, seed=0, device=device, trainable=True)
+    step_fn = build_train_step(cfg, None, OptConfig(
+        lr=3e-4, warmup_steps=2, total_steps=steps), q_chunk=q_chunk,
+        remat=True, grad_accum=grad_accum)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    batch=rows * grad_accum, seq_len=seq,
+                                    seed=0))
+    injected = {"done": fail_at is None}
+
+    def step(st, batch):
+        t0 = time.perf_counter()
+        p, o, m = step_fn(st["params"], st["opt"], batch)
+        if not injected["done"] and int(st["step"]) == fail_at:
+            injected["done"] = True    # after the in-place update
+            raise RuntimeError("injected failure after the update")
+        m = {k: float(v) for k, v in m.items()}
+        if device.type == "cuda":
+            import torch
+            torch.cuda.synchronize()
+        if on_step is not None:
+            on_step(int(st["step"]), m, time.perf_counter() - t0)
+        return {"params": p, "opt": o, "step": st["step"] + 1}, m
+
+    coord = Coordinator(step, lambda s: device_batch(pipe.batch_at(s),
+                                                     device),
+                        CheckpointManager(ckpt_dir, keep=2),
+                        ckpt_every=ckpt_every)
+    state = {"params": params, "opt": init_state(params), "step": 0}
+    state, last, hist = coord.run(state, 0, steps)
+    require(last == steps, f"training stopped at step {last}")
+    return state, hist, coord, step_fn, pipe
+
+
+def lm_training_phase(device, rehearse: bool) -> dict:
+    """qwen2-0.5b trained at full width and depth through the port's
+    train step, data pipeline, checkpoints and ``Coordinator`` (one
+    injected failure), then holds (a)-(e) as the module docstring says;
+    returns the main cell's numbers."""
+    import dataclasses
+    import os
+    import torch
+    from repro_torch.data import device_batch
+    from repro_torch.models import model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    run, cut_shape = dict(LM_TRAIN), LM_TRAIN_CUT_SHAPE
+    replay = dict(LM_TRAIN_REPLAY)
+    if rehearse:
+        run.update(seq=32, micro=2, grad_accum=2, steps=6, ckpt_every=2,
+                   fail_at=3, q_chunk=16)
+        cut_shape = (1, 32)
+        replay.update(seq=32)
+    cfg = lm_config(run["arch"], None, rehearse)
+    rows, seq, accum = run["micro"], run["seq"], run["grad_accum"]
+    tokens = rows * accum * seq
+    n_params = model.count_params(cfg)
+    flops = lm_train_flops(cfg, n_params, tokens, seq)
+    ckpt_dir = ROOT / "build" / "lm_train_ckpt"
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    steps = {}
+
+    on_card = device.type == "cuda"
+
+    def on_step(i, m, seconds):
+        steps.setdefault(i, []).append((m, seconds))
+        mfu = (f"{flops / seconds / BF16_FLOPS_PER_S:.4f}" if on_card
+               else "not measured (cpu)")
+        log(f"lm train {cfg.name} step {i}: loss {m['loss']:.5f} grad_norm "
+            f"{m['grad_norm']:.5f} lr {m['lr']:.3e}; {seconds * 1e3:.3f} ms,"
+            f" {tokens / seconds:.1f} tokens/s, MFU {mfu}")
+
+    t0 = time.perf_counter()
+    state, hist, coord, step_fn, pipe = lm_train_run(
+        cfg, device, run["steps"], run["ckpt_every"], run["fail_at"], rows,
+        seq, accum, run["q_chunk"], ckpt_dir, on_step)
+    train_s = time.perf_counter() - t0
+    peak = (f"{torch.cuda.max_memory_allocated()} bytes" if on_card
+            else "not measured (cpu)")
+    # (a) every loss and gradient norm finite
+    losses = [h["loss"] for h in hist]
+    require(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                for h in hist), f"lm train {cfg.name} (a): not finite")
+    require(len(coord.restarts) == 1, f"lm train {cfg.name}: "
+            f"{len(coord.restarts)} recoveries, not 1")
+    # steady steps: the first attempt of each step after the first two
+    warm = [s for i in sorted(steps) if i >= 2 for _, s in steps[i][:1]]
+    step_s = float(np.median(warm))
+    mfu = flops / step_s / BF16_FLOPS_PER_S if on_card else None
+    resumed = run["fail_at"] // run["ckpt_every"] * run["ckpt_every"]
+    log(f"lm train {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {n_params} parameters; batch {rows * accum} x "
+        f"{seq} ({rows} x {accum} accumulated, remat), {tokens} tokens/step;"
+        f" {run['steps']} steps and {len(coord.restarts)} failed attempt in "
+        f"{train_s:.3f} s (checkpoints every {run['ckpt_every']} under "
+        f"build/, failure injected at step {coord.restarts[0]['step']} "
+        f"after its update, resumed from the step-{resumed} checkpoint): "
+        f"median step {step_s * 1e3:.3f} ms, {tokens / step_s:.1f} "
+        f"tokens/s; model FLOPs/step {flops:.4e} (6 N tokens + attention), "
+        f"MFU {'not measured (cpu)' if mfu is None else f'{mfu:.4f}'} of "
+        f"{BF16_FLOPS_PER_S:.3e} bf16 FLOP/s (H100 SXM data sheet); peak "
+        f"memory {peak}; losses " + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; phase at {time.perf_counter() - t_phase:.3f} s")
+
+    # one traced step: launches and the idle share
+    batch = device_batch(pipe.batch_at(run["steps"]), device)
+    traced = lm_trace(lambda: step_fn(state["params"], state["opt"], batch),
+                      device)
+    idle_untraced = (None if traced["busy_ms"] is None else
+                     1 - traced["busy_ms"] / (step_s * 1e3))
+    log(f"lm train {cfg.name} trace: one step {traced['wall_ms']} ms wall "
+        f"under the profiler, device busy {traced['busy_ms']} ms, idle share"
+        f" {traced['idle']} (of the untraced median step's "
+        f"{step_s * 1e3:.3f} ms: {idle_untraced}); {traced['kernels']} "
+        f"kernel launches per step; device ms by kernel (launches): "
+        + "; ".join(f"{name[:70]} {ms:.3f} ({n})"
+                    for name, (ms, n) in traced["top"])
+        + f"; phase at {time.perf_counter() - t_phase:.3f} s")
+    out = dict(step_ms=step_s * 1e3, tokens_per_s=tokens / step_s, mfu=mfu,
+               peak_bytes=peak, launches=traced["kernels"],
+               idle=traced["idle"], idle_untraced=idle_untraced,
+               losses=losses)
+    del state, step_fn
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (b), (c): cut models, card against the CPU path
+    for arch, changes in LM_TRAIN_CUTS:
+        base = lm_config(arch, None, rehearse)
+        log(lm_grad_hold(f"lm train hold (b) {arch}", base, changes, device,
+                         cut_shape, run["q_chunk"])
+            + f"; phase at {time.perf_counter() - t_phase:.3f} s")
+
+    # (d) the failure-injected run's final state against an uninterrupted
+    # run's, under deterministic algorithms
+    cut = dataclasses.replace(cfg, num_layers=2)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        finals = []
+        for fail_at in (replay["fail_at"], None):
+            st, _, co, _, _ = lm_train_run(
+                cut, device, replay["steps"], replay["ckpt_every"], fail_at,
+                replay["rows"], replay["seq"], 1, run["q_chunk"],
+                ROOT / "build" / "lm_train_replay")
+            finals.append((st, len(co.restarts)))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (a, fa), (b, fb) = finals
+    require(fa == 1 and fb == 0, "lm train (d): recoveries")
+    same = all(torch.equal(p, q) for p, q in zip(
+        a["params"].parameters(), b["params"].parameters())) and all(
+        torch.equal(a["opt"][k][n], b["opt"][k][n])
+        for k in ("mu", "nu") for n in a["opt"][k])
+    require(same and int(a["opt"]["step"]) == int(b["opt"]["step"]),
+            "lm train (d): the recovered run's final state differs")
+    log(f"lm train hold (d) {cut.name} {cut.num_layers} layers, "
+        f"{replay['steps']} steps of {replay['rows']} x {replay['seq']}: "
+        f"failure at step {replay['fail_at']} after its update, restored "
+        f"from the step-{replay['ckpt_every']} checkpoint; final params, mu,"
+        f" nu and step equal to an uninterrupted run's, bit for bit, under "
+        f"torch.use_deterministic_algorithms; phase at "
+        f"{time.perf_counter() - t_phase:.3f} s")
+    del a, b, finals
+
+    # (e) the example on the card
+    example = load_example("train_lm_torch")
+    res = example.main(["--steps", "40" if rehearse else "100",
+                        "--device", str(device)])
+    require(res["recoveries"] == 1 and res["final"] < res["first"],
+            "lm train (e): the example did not recover once and learn")
+    log(f"lm train hold (e) examples/train_lm_torch.py: {res['steps']} "
+        f"steps in {res['seconds']:.3f} s, loss {res['first']:.4f} -> "
+        f"{res['final']:.4f}, {res['recoveries']} recovery; phase at "
+        f"{time.perf_counter() - t_phase:.3f} s")
+    return out
+
+
 def phase_done(name: str, t_start: float) -> None:
     log(f"phase {name} done at {time.perf_counter() - t_start:.3f} s")
 
@@ -2877,6 +3184,8 @@ def main(argv=None) -> int:
     phase_done("LM serving", t_start)
     lm_recurrent_phase(device, args.rehearse)
     phase_done("LM recurrent serving", t_start)
+    lm_training_phase(device, args.rehearse)
+    phase_done("LM training", t_start)
 
     log(f"chip_smoke elapsed {time.perf_counter() - t_start:.3f} s")
     if args.rehearse:

@@ -76,6 +76,14 @@ The LM substrate's serving path (the attention architectures of
     params = make_params(get_config("qwen2-0.5b"), seed=0)   # on the card
     eng = ServeEngine(cfg, params, max_seq_len=584, q_chunk=64)
     out = eng.generate(prompts, max_new_tokens=64)
+
+and its training path in ``repro_torch.train`` and ``repro_torch.data``::
+
+    params = make_params(cfg, seed=0, trainable=True)  # float32 masters
+    step = build_train_step(cfg, shape, OptConfig(), remat=True,
+                            grad_accum=4)
+    params, opt, metrics = step(params, init_state(params),
+                                device_batch(pipe.batch_at(0), "cuda"))
 """
 
 from repro_torch.core.census import (

@@ -108,6 +108,18 @@ def lm_params_from_reference(cfg, tree, num_layers: int | None = None
     return sd
 
 
+def opt_state_from_reference(cfg, opt, num_layers: int | None = None
+                             ) -> dict:
+    """The port's optimizer state for a ``LanguageModel`` from a JAX
+    ``init_state``/``apply_update`` state of numpy arrays: ``mu`` and
+    ``nu`` mapped to parameter names as :func:`lm_params_from_reference`
+    maps the parameters, ``step`` an int32 scalar tensor (CPU)."""
+    return {"mu": lm_params_from_reference(cfg, opt["mu"], num_layers),
+            "nu": lm_params_from_reference(cfg, opt["nu"], num_layers),
+            "step": torch.tensor(int(np.asarray(opt["step"])),
+                                 dtype=torch.int32)}
+
+
 def lm_cache_from_reference(cfg, cache):
     """The port's copy of a JAX package cache, as torch tensors on the
     CPU.

@@ -43,16 +43,26 @@ def attn_schema(cfg) -> dict:
     return s
 
 
-def _proj(x, w, b=None):
-    """einsum("bsd,dhk->bshk") as one matmul over d, plus the bias."""
+def _proj(x, w, b=None, rounded: bool = True):
+    """einsum("bsd,dhk->bshk") as one matmul over d, plus the bias; with
+    ``rounded=False`` the sum is left in float32 for the caller to
+    round."""
     d, h, k = w.shape
     y = (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
-    return y if b is None else y + b.to(y.dtype)
+    if b is None:
+        return y
+    b = b.to(y.dtype)
+    return y + b if rounded else y.float() + b.float()
 
 
 def _project_qkv(cfg, p, xq, xkv):
-    q = _proj(xq, p["wq"], p["bq"] if cfg.qkv_bias else None)
-    k = _proj(xkv, p["wk"], p["bk"] if cfg.qkv_bias else None)
+    """(q, k, v).  q and k are each projection's sum with its bias in
+    float32, not rounded: the reference's compiled program feeds that sum
+    to the rope unrounded and rounds once after it, so the caller rounds
+    q and k after :func:`_rope` (with no bias they are the rounded
+    products already).  v is rounded."""
+    q = _proj(xq, p["wq"], p["bq"] if cfg.qkv_bias else None, False)
+    k = _proj(xkv, p["wk"], p["bk"] if cfg.qkv_bias else None, False)
     v = _proj(xkv, p["wv"], p["bv"] if cfg.qkv_bias else None)
     return q, k, v
 
@@ -135,9 +145,9 @@ def attention_kv(cfg, p, x, *, positions=None, layer_window: int = 0,
     self_attn = xkv is None
     xkv = x if self_attn else xkv
     q, k, v = _project_qkv(cfg, p, x, xkv)
-    q = _rope(cfg, q, positions)
+    q = _rope(cfg, q, positions).to(x.dtype)
     k = _rope(cfg, k, kv_positions if kv_positions is not None else
-              (positions if self_attn else None))
+              (positions if self_attn else None)).to(xkv.dtype)
     hkv = cfg.num_kv_heads
     g = cfg.num_heads // hkv
     qg = q.reshape(b, s, hkv, g, cfg.head_dim)
@@ -212,8 +222,8 @@ def decode_attention(cfg, p, x, cache, pos: int, *, layer_window: int = 0,
         valid = torch.ones(k.shape[1], dtype=torch.bool, device=x.device)
     else:
         q, k_new, v_new = _project_qkv(cfg, p, x, x)
-        q = _decode_rope(cfg, q, pos)
-        k_new = _decode_rope(cfg, k_new, pos)
+        q = _decode_rope(cfg, q, pos).to(x.dtype)
+        k_new = _decode_rope(cfg, k_new, pos).to(x.dtype)
         s_cache = cache["k"].shape[1]
         slot = pos % s_cache if layer_window else pos
         if cache["k"].dtype == torch.int8:

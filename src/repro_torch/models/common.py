@@ -52,9 +52,10 @@ def count_schema_params(schema) -> int:
 
 
 class ParamTree(nn.Module):
-    """A schema subtree as a module: each ``ParamDef`` leaf a frozen
-    ``nn.Parameter``, each inner dict a child ``ParamTree``, all under
-    the schema's names.  ``p["wq"]`` reads a leaf as the reference's
+    """A schema subtree as a module: each ``ParamDef`` leaf an
+    ``nn.Parameter``, frozen until ``requires_grad_()`` makes it a
+    trainable master weight, each inner dict a child ``ParamTree``, all
+    under the schema's names.  ``p["wq"]`` reads a leaf as the reference's
     functions read their parameter dicts."""
 
     def __init__(self, schema: dict, device=None):

@@ -2,7 +2,8 @@
 (M-RoPE), encoder-decoder and the recurrent ones (xLSTM's mLSTM and sLSTM,
 RecurrentGemma's RG-LRU with local attention).
 
-The port of ``repro.models.model``'s serving path.  The reference groups
+The port of ``repro.models.model``'s serving path and its training loss
+(:func:`loss_fn`, with ``remat``).  The reference groups
 layers of one signature into stacked, scanned supergroups; the port keeps
 one module per layer instead (:class:`LanguageModel`: an ``nn.ModuleList``
 of blocks, each leaf named as the reference names it — ``norm1.scale``,
@@ -24,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.engine import resolve_device
@@ -197,17 +199,21 @@ class LanguageModel(ParamTree):
 
 def make_params(cfg: ArchConfig, seed: int = 0,
                 num_layers: int | None = None, device=None,
-                generator: torch.Generator | None = None) -> LanguageModel:
+                generator: torch.Generator | None = None,
+                trainable: bool = False) -> LanguageModel:
     """A :class:`LanguageModel` on ``device`` (the card unless given
     another), filled by the reference's recipes from ``generator`` (a
     ``torch.Generator`` on that device seeded with ``seed`` when not
-    given)."""
+    given).  ``trainable`` makes every float32 leaf require a gradient:
+    the master weights of training, which the forward casts at use as it
+    casts a frozen model's (``model.requires_grad_()`` does the same to a
+    model made otherwise)."""
     device = resolve_device(device)
     model = LanguageModel(cfg, num_layers, device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(seed)
     init_params(model, generator)
-    return model
+    return model.requires_grad_(trainable)
 
 
 def compute_copy(model: LanguageModel, device=None) -> LanguageModel:
@@ -365,20 +371,31 @@ def run_stack(cfg, layers, groups, x, ctx):
     """Apply each layer in turn, ``groups`` being the reference's
     (``layer_groups``) -> (x, the float32 sum the final norm reads or
     ``None`` when it reads ``x`` (:func:`carried_inputs`), summed
-    metrics, per-layer caches)."""
+    metrics, per-layer caches).
+
+    With ``ctx["remat"]`` each layer runs under
+    ``torch.utils.checkpoint.checkpoint`` (non-reentrant), as the
+    reference wraps each scan body in ``jax.checkpoint``: the backward
+    recomputes a layer from its inputs instead of keeping its
+    activations."""
     metrics = _zero_metrics(cfg, x.device)
     caches = []
     sigs, reads_carry, scanned = carried_inputs(groups)
     s = None
     for sig, p, carry in zip(sigs, layers, reads_carry):
-        x, aux = apply_block(cfg, sig, p, x, ctx, None if carry else s)
+        if ctx.get("remat"):
+            x, aux = checkpoint(apply_block, cfg, sig, p, x, ctx,
+                                None if carry else s, use_reentrant=False)
+        else:
+            x, aux = apply_block(cfg, sig, p, x, ctx, None if carry else s)
         s = aux["sum"]
         metrics = _merge_metrics(metrics, aux["metrics"])
         caches.append(aux["cache"])
     return x, None if scanned else s, metrics, caches
 
 
-def encode(cfg, params, src_embeds, *, q_chunk: int = 512):
+def encode(cfg, params, src_embeds, *, q_chunk: int = 512,
+           remat: bool = False):
     """The encoder stack over ``src_embeds`` (B, S_src, d) ->
     (encoder output in bfloat16, its positions)."""
     src = src_embeds.to(torch.bfloat16)
@@ -386,7 +403,7 @@ def encode(cfg, params, src_embeds, *, q_chunk: int = 512):
     positions = torch.arange(ss, dtype=torch.int32,
                              device=src.device).expand(bs, ss)
     ctx = dict(positions=positions, causal=False, q_chunk=q_chunk,
-               want_cache=False, enc_out=None)
+               want_cache=False, enc_out=None, remat=remat)
     enc = params["encoder"]
     groups = [([layer_sigs(cfg, 1)[0]], cfg.encoder_layers)]
     x, s, _, _ = run_stack(cfg, enc.layers, groups, src, ctx)
@@ -396,20 +413,22 @@ def encode(cfg, params, src_embeds, *, q_chunk: int = 512):
 
 def forward(cfg: ArchConfig, params, batch, *, q_chunk: int = 512,
             rec_chunk: int = 256, want_cache: bool = False,
-            moe_groups: int = 1, enc_out=None):
+            moe_groups: int = 1, enc_out=None, remat: bool = False):
     """Full-sequence forward -> (final hidden states, metrics, per-layer
     caches).  An encoder-decoder encodes ``batch["src_embeds"]`` unless
     given its ``enc_out`` (from :func:`encode`).  ``rec_chunk`` is the
-    mLSTM's chunk length."""
+    mLSTM's chunk length; ``remat`` recomputes each layer in the backward
+    (:func:`run_stack`)."""
     x = embed_tokens(cfg, params, batch)
     b, s, _ = x.shape
     ctx = dict(positions=_positions_for(cfg, batch, b, s, x.device),
                causal=True, q_chunk=q_chunk, rec_chunk=rec_chunk,
-               want_cache=want_cache, enc_out=None, moe_groups=moe_groups)
+               want_cache=want_cache, enc_out=None, moe_groups=moe_groups,
+               remat=remat)
     if cfg.is_encdec:
         if enc_out is None:
             enc_out = encode(cfg, params, batch["src_embeds"],
-                             q_chunk=q_chunk)
+                             q_chunk=q_chunk, remat=remat)
         ctx["enc_out"], ctx["enc_positions"] = enc_out
     x, s, metrics, caches = run_stack(
         cfg, params.layers, layer_groups(cfg, len(params.layers)), x, ctx)
@@ -428,6 +447,36 @@ def _mask_padded_vocab(cfg, logits):
     vp = logits.shape[-1]
     neg = torch.arange(vp, device=logits.device) >= cfg.vocab_size
     return torch.where(neg, attn_mod.NEG_INF, logits)
+
+
+def loss_fn(cfg: ArchConfig, params, batch, *, q_chunk: int = 512,
+            rec_chunk: int = 256, remat: bool = False, moe_groups: int = 1):
+    """Cross-entropy + MoE aux losses -> (loss, metrics).  labels < 0 are
+    masked; the loss is the masked mean over ``max(count, 1)``.
+
+    As the reference's: the logits over the padded vocabulary are masked
+    to ``NEG_INF`` in the activation dtype, then read in float32; an MoE
+    config adds ``router_aux_coef · moe_aux_loss + 1e-3 · moe_z_loss``.
+    ``metrics`` holds the forward's (the MoE ones) and ``nll``.  The
+    label's logit is a ``gather``, where the reference reduces a one-hot
+    mask (to keep GSPMD from gathering the vocabulary): both pick the
+    same element.
+    """
+    x, metrics, _ = forward(cfg, params, batch, q_chunk=q_chunk,
+                            rec_chunk=rec_chunk, moe_groups=moe_groups,
+                            remat=remat)
+    labels = batch["labels"].long()
+    logits = _mask_padded_vocab(
+        cfg, logits_from_hidden(cfg, params, x)).float()
+    lse = torch.logsumexp(logits, dim=-1)                       # (b, s)
+    ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    msk = (labels >= 0).float()
+    nll = torch.sum((lse - ll) * msk) / torch.clamp(msk.sum(), min=1.0)
+    loss = nll
+    if cfg.is_moe:
+        loss = (loss + cfg.router_aux_coef * metrics["moe_aux_loss"]
+                + 1e-3 * metrics["moe_z_loss"])
+    return loss, dict(metrics, nll=nll)
 
 
 def serve_prefill(cfg: ArchConfig, params, batch, *, q_chunk: int = 512,

@@ -1,8 +1,8 @@
-"""The port's entry points: the four ``examples/*_torch.py`` scripts and
-the serving launcher ``python -m repro_torch.launch.serve`` run end to
-end on the CPU (``--device cpu``) at small sizes and print their check
-lines, and each refuses to run without a card when ``--device`` is not
-given.  ``CensusPlan.balance_stats``, which the scaling example reports,
+"""The port's entry points: the five ``examples/*_torch.py`` scripts and
+the serving and training launchers (``python -m repro_torch.launch.serve``,
+``python -m repro_torch.launch.train``) run end to end on the CPU
+(``--device cpu``) at small sizes and print their check lines, and each
+refuses to run without a card when ``--device`` is not given.  ``CensusPlan.balance_stats``, which the scaling example reports,
 equals the JAX package's."""
 
 import os
@@ -19,14 +19,15 @@ from repro.core import paper_workload as ref_paper_workload
 
 ROOT = Path(__file__).resolve().parents[1]
 SCRIPTS = ("quickstart_torch", "network_monitor_torch",
-           "census_scaling_torch", "serve_lm_torch")
+           "census_scaling_torch", "serve_lm_torch", "train_lm_torch")
 LAUNCHER = "-m repro_torch.launch.serve"
+TRAIN_LAUNCHER = "-m repro_torch.launch.train"
 
 
 def run_example(name, *args):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
-    target = (LAUNCHER.split() if name == LAUNCHER
+    target = (name.split() if name in (LAUNCHER, TRAIN_LAUNCHER)
               else [str(ROOT / "examples" / f"{name}.py")])
     return subprocess.run(
         [sys.executable, *target, *args],
@@ -108,10 +109,44 @@ def test_serve_launcher_refuses_recurrent_archs():
     assert "32 tokens in" in out.stdout and "on cpu" in out.stdout
 
 
-@pytest.mark.parametrize("name", SCRIPTS + (LAUNCHER,))
+def test_train_lm_on_cpu():
+    out = run_example("train_lm_torch", "--device", "cpu", "--steps", "40",
+                      "--batch", "4", "--seq", "32")
+    assert out.returncode == 0, out.stderr[-2000:]
+    found = re.search(r"loss: first-10 avg ([\d.]+) -> last-10 avg "
+                      r"([\d.]+)", out.stdout)
+    assert found and float(found.group(2)) < float(found.group(1))
+    assert "recoveries: 1 [\"RuntimeError('injected node failure" in \
+        out.stdout
+    assert "loss decreased ✓" in out.stdout
+
+
+def test_train_launcher_on_cpu(tmp_path):
+    out = run_example(TRAIN_LAUNCHER, "--arch", "qwen2-0.5b", "--reduced",
+                      "--device", "cpu", "--steps", "3", "--batch", "2",
+                      "--seq", "16", "--ckpt-dir", str(tmp_path),
+                      "--ckpt-every", "2")
+    assert out.returncode == 0, out.stderr[-2000:]
+    steps = re.findall(r"^step (\d+): loss ([\d.]+) grad_norm [\d.]+ lr "
+                       r"\S+; [\d.]+ ms, \d+ tokens/s; peak memory not "
+                       r"measured \(cpu\)$", out.stdout, re.MULTILINE)
+    assert [int(s) for s, _ in steps] == [0, 1, 2]
+    assert "3 steps in" in out.stdout
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "step_0000000002", "step_0000000003"]
+    again = run_example(TRAIN_LAUNCHER, "--arch", "qwen2-0.5b", "--reduced",
+                        "--device", "cpu", "--steps", "1", "--batch", "2",
+                        "--seq", "16", "--ckpt-dir", str(tmp_path),
+                        "--resume")
+    assert again.returncode == 0, again.stderr[-2000:]
+    assert "resumed from step 3" in again.stdout
+    assert "step 3: loss" in again.stdout
+
+
+@pytest.mark.parametrize("name", SCRIPTS + (LAUNCHER, TRAIN_LAUNCHER))
 def test_refuses_without_a_card(name):
     out = run_example(name, *(["--arch", "qwen2-0.5b"]
-                              if name == LAUNCHER else []))
+                              if name in (LAUNCHER, TRAIN_LAUNCHER) else []))
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr
 

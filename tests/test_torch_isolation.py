@@ -17,7 +17,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + [
     ROOT / "examples" / f"{name}_torch.py"
     for name in ("quickstart", "network_monitor", "census_scaling",
-                 "serve_lm")]
+                 "serve_lm", "train_lm")]
 #: the JAX package's names the port exports under another name
 RENAMED = {"default_mesh": "default_devices"}
 #: ``import jax``, ``from jax…``, ``import repro``, ``from repro.…`` —
@@ -37,7 +37,11 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.models.ffn, repro_torch.models.attention, "
             "repro_torch.models.moe, repro_torch.models.recurrent, "
             "repro_torch.models.model, "
-            "repro_torch.serve.engine, repro_torch.launch.serve\n"
+            "repro_torch.serve.engine, repro_torch.launch.serve, "
+            "repro_torch.train, repro_torch.train.optimizer, "
+            "repro_torch.train.train_loop, repro_torch.train.checkpoint, "
+            "repro_torch.train.fault, repro_torch.data, "
+            "repro_torch.data.pipeline, repro_torch.launch.train\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
             "'repro') or m.startswith(('jax.', 'jaxlib.', 'repro.')))\n"
             "print(bad)\n")
@@ -67,7 +71,11 @@ def test_port_sources_exist():
                 "models/common.py", "models/ffn.py", "models/attention.py",
                 "models/moe.py", "models/recurrent.py", "models/model.py",
                 "serve/__init__.py",
-                "serve/engine.py", "launch/__init__.py", "launch/serve.py"):
+                "serve/engine.py", "launch/__init__.py", "launch/serve.py",
+                "train/__init__.py", "train/optimizer.py",
+                "train/train_loop.py", "train/checkpoint.py",
+                "train/fault.py", "data/__init__.py", "data/pipeline.py",
+                "launch/train.py"):
         assert f"repro_torch/{mod}" in names, mod
 
 
@@ -81,7 +89,7 @@ def test_every_reference_config_is_copied():
 
 
 def test_examples_exist():
-    for path in PORT_FILES[-4:]:
+    for path in PORT_FILES[-5:]:
         assert path.is_file(), path
 
 

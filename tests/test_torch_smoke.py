@@ -72,6 +72,16 @@ def test_rehearsal_runs_every_phase_and_reports_nothing():
                   "lm recurrentgemma-2b trace:",
                   "lm recurrentgemma-2b holds: (a) yes; (b)",
                   "phase LM recurrent serving done",
+                  "lm train qwen2-0.5b step 0: loss",
+                  "lm train qwen2-0.5b: 2 layers",
+                  "lm train qwen2-0.5b trace:",
+                  "lm train hold (b) qwen2-0.5b 2 layers",
+                  "lm train hold (b) granite-moe-3b-a800m 2 layers",
+                  "lm train hold (b) recurrentgemma-2b 3 layers",
+                  "lm train hold (b) xlstm-1.3b 2 layers (mlstm, mlstm)",
+                  "lm train hold (d) qwen2-0.5b 2 layers",
+                  "lm train hold (e) examples/train_lm_torch.py",
+                  "phase LM training done",
                   "rehearsal complete"):
         assert phase in out.stdout, phase
     assert '"ok"' not in out.stdout
