@@ -116,7 +116,33 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
     full width: its prefill logits card vs CPU are printed beside the CPU
     path's own deviation under one bfloat16 step of one input, and the
     mLSTM layer's prefill from the CPU's input to it and each decode step
-    from the CPU's cache are held.
+    from the CPU's cache are held;
+13. trains qwen2-0.5b at full width and depth through the port's train
+    step, data pipeline, checkpoints and ``Coordinator`` (one injected
+    failure), printing each step and the MFU, and holds (a) finite
+    losses, (b)/(c) cut models' losses and gradients card against CPU,
+    (d) a recovered run equal to an uninterrupted one and (e) the
+    training example on the card;
+14. drives the parallel layer over logical devices (streams on the one
+    card): (a) the placements of every config's parameters, optimizer
+    state and train_4k decode cache at (16, 16) and (2, 16, 16), on
+    ``meta``: leaves sharded by each axis, parameter + optimizer bytes
+    per device; (b) one granite-moe-3b-a800m MoE layer at full width in
+    float32 on the hidden states of a 4 x 512 batch after layer 0's
+    attention, through ``make_sharded_moe`` on (1, 4) (EP all-to-all)
+    and (2, 2) (FSDP gather over ``data``), held at capacity 16 to
+    ``apply_moe`` on the card and at 1.25 to the same path on the CPU,
+    then the full-depth prefill through ``moe_fn`` printed beside the
+    grouped path; (c) ``build_train_step(moe_impl="shard_map")`` on
+    granite cut to 4 layers, 2 steps on (1, 4), losses held to the CPU
+    and to ``moe_impl="gspmd"``; (d) qwen2-0.5b's 24 layers as 2 GPipe
+    stages (``split_stages``, ``pipeline_apply``), 4 microbatches of 2 x
+    512, outputs bit for bit and gradients held to the sequential
+    ``run_stack``; (e) ``quantized_tree_psum`` of qwen2-0.5b's gradients
+    from 4 micro-batches over 4 ``data`` shards at 8 and 16 bits, every
+    shard's reduced values bit for bit to the CPU's ``quantized_psum``,
+    each leaf's error within n · scale / (2 · qmax), residuals + reduced
+    to the gradients' sum; each part's seconds and peak memory.
 
 Any mismatch raises, so the exit code is non-zero.  The line before the
 last is the per-kernel JSON record; the last line is
@@ -2863,9 +2889,11 @@ def lm_train_run(cfg, device, steps, ckpt_every, fail_at, rows, seq,
         init_state)
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     params = model.make_params(cfg, seed=0, device=device, trainable=True)
-    step_fn = build_train_step(cfg, None, OptConfig(
-        lr=3e-4, warmup_steps=2, total_steps=steps), q_chunk=q_chunk,
-        remat=True, grad_accum=grad_accum)
+    from repro_torch.configs.base import ShapeSpec
+    step_fn, _, _ = build_train_step(
+        cfg, None, ShapeSpec("smoke", "train", seq, rows * grad_accum),
+        OptConfig(lr=3e-4, warmup_steps=2, total_steps=steps),
+        q_chunk=q_chunk, remat=True, grad_accum=grad_accum)
     pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
                                     batch=rows * grad_accum, seq_len=seq,
                                     seed=0))
@@ -3040,6 +3068,620 @@ def lm_training_phase(device, rehearse: bool) -> dict:
     return out
 
 
+#: the LM parallel phase: the parallel layer over logical devices (each a
+#: stream on the one card).  (b) one granite-moe-3b-a800m MoE layer in
+#: float32 on the hidden states of a (rows, positions) batch after layer
+#: 0's attention, sharded on each mesh; the full-depth prefill through
+#: ``moe_fn`` on the first; (c) granite cut to ``layers`` at full width,
+#: ``steps`` train steps on ``mesh``; (d) qwen2-0.5b's 24 layers in
+#: ``stages`` stages, ``micro`` microbatches of (rows, positions); (e)
+#: qwen2-0.5b's gradients of ``shards`` micro-batches of (rows,
+#: positions) all-reduced at each width of ``bits``
+LM_PAR_MOE = dict(arch="granite-moe-3b-a800m", rows=4, seq=512,
+                  meshes=((1, 4), (2, 2)), q_chunk=512)
+LM_PAR_STEP = dict(arch="granite-moe-3b-a800m", layers=4, rows=1, seq=512,
+                   steps=2, mesh=(1, 4), q_chunk=512, floor=1e-3)
+LM_PAR_PIPE = dict(arch="qwen2-0.5b", stages=2, micro=4, rows=2, seq=512,
+                   q_chunk=512)
+LM_PAR_QUANT = dict(arch="qwen2-0.5b", shards=4, rows=1, seq=512,
+                    bits=(8, 16), q_chunk=512)
+#: (b)'s bound on the sharded layer against ``apply_moe`` on the card,
+#: relative to the output's largest magnitude (float32 sums over 1,536
+#: and 512 terms in GEMMs of other shapes; TF32 off)
+LM_PAR_MOE_REL = 1e-5
+#: (b) at capacity 1.25, the card against the CPU: outputs within this
+#: much of their largest magnitude (as the serving phase's MoE hold)
+LM_PAR_MOE_CPU_REL = 1e-4
+#: (d)'s bound on the pipeline's gradient against the sequential one,
+#: relative to each leaf's largest magnitude
+LM_PAR_PIPE_REL = 1e-5
+
+
+def lm_peak(device):
+    import torch
+    return (f"{torch.cuda.max_memory_allocated()} bytes"
+            if device.type == "cuda" else "not measured (cpu)")
+
+
+def lm_sync(device):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def lm_par_placements(rehearse: bool) -> list:
+    """Part (a): for each config at (16, 16) and (2, 16, 16), the
+    placements of its parameters, optimizer state and a train_4k decode
+    cache, all on ``meta``: the leaves each mesh axis shards, and the
+    parameter + optimizer bytes each device holds."""
+    from repro_torch.configs import SHAPES, all_configs
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.parallel.inputs import decode_inputs
+    from repro_torch.train import build_train_step
+    lines = []
+    for multi_pod in (False, True):
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        for arch in sorted(all_configs()):
+            cfg = lm_config(arch, None, rehearse)
+            _, shardings, abstract = build_train_step(
+                cfg, mesh, SHAPES["train_4k"])
+            _, cache, cache_sh = decode_inputs(cfg, SHAPES["train_4k"],
+                                               mesh)
+            counts = {}
+            per_device = total = 0
+            for part, place_tree, leaf_tree in (
+                    ("params", shardings["params"], abstract["params"]),
+                    ("opt", shardings["opt"], abstract["opt"]),
+                    ("cache", cache_sh["cache"], cache)):
+                leaf_of = lm_flat(leaf_tree)
+                for path, place in lm_flat(place_tree).items():
+                    leaf = leaf_of[path]
+                    axes = {a for d in range(len(place.spec))
+                            for a in place.parts(d)}
+                    row = counts.setdefault(part, {"leaves": 0})
+                    row["leaves"] += 1
+                    for a in axes:
+                        row[a] = row.get(a, 0) + 1
+                    if part == "cache":
+                        continue
+                    nbytes = leaf.numel() * leaf.element_size()
+                    total += nbytes
+                    per_device += nbytes // int(np.prod(
+                        [place.blocks(d) for d in range(len(place.spec))]))
+            lines.append(
+                f"lm parallel placements {arch} {mesh}: " + "; ".join(
+                    f"{part} {row['leaves']} leaves, sharded over "
+                    + ", ".join(f"{a} {row.get(a, 0)}"
+                                for a in mesh.axis_names)
+                    for part, row in counts.items())
+                + f"; params + opt bytes per device {per_device} of "
+                f"{total}")
+    return lines
+
+
+def lm_flat(tree, prefix=()) -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(lm_flat(tree[k], prefix + (str(k),)))
+        return out
+    if isinstance(tree, list):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(lm_flat(v, prefix + (str(i),)))
+        return out
+    return {prefix: tree}
+
+
+def lm_par_moe(device, rehearse: bool) -> list:
+    """Part (b): the sharded MoE at full width.  Held: one layer in
+    float32 on real hidden states, capacity 16 against ``apply_moe`` on
+    the card (``LM_PAR_MOE_REL``, equal ``expert_load``, no drops),
+    capacity 1.25 against the same sharded path on the CPU.  Printed: the
+    full-depth prefill through ``moe_fn`` on the first mesh against the
+    grouped path."""
+    import dataclasses
+    import torch
+    from repro_torch.data import DataConfig, TokenPipeline, device_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model, moe
+    from repro_torch.models.moe_shard import make_sharded_moe
+    from repro_torch.parallel.sharding import (
+        batch_axes, moe_dispatch_plan, spec_for_axes)
+    run = dict(LM_PAR_MOE)
+    if rehearse:
+        run.update(rows=2, seq=16, q_chunk=8)
+    base = lm_config(run["arch"], None, rehearse)
+    one = dataclasses.replace(base, num_layers=1)
+    rows, seq = run["rows"], run["seq"]
+    batch = device_batch(TokenPipeline(DataConfig(
+        vocab_size=base.vocab_size, batch=rows, seq_len=seq,
+        seed=1)).batch_at(0), device)
+    params = model.make_params(one, seed=0, device=device)
+    seen = {}
+
+    def capture(p, h):             # layer 0's MoE input, then nothing
+        seen["h"] = h
+        return torch.zeros_like(h), {}
+    with torch.no_grad():
+        model.forward(one, params, batch, q_chunk=run["q_chunk"],
+                      moe_fn=capture)
+    h = seen["h"].float()
+    p = {k: params.layers[0]["moe"][k].detach() for k in
+         params.layers[0]["moe"].inits}
+    p_cpu = {k: v.cpu() for k, v in p.items()}
+    lines = []
+    with torch.no_grad():
+        want, want_m = moe.apply_moe(base, p, h, capacity_factor=16.0)
+        for shape in run["meshes"]:
+            mesh = make_host_mesh(shape, ("data", "model"), device=device)
+            cpu_mesh = make_host_mesh(shape, ("data", "model"),
+                                      device="cpu")
+            fns = {}
+            for where, m, cf in (("card", mesh, 16.0),
+                                 ("card", mesh, 1.25),
+                                 ("cpu", cpu_mesh, 1.25)):
+                specs = {k: spec_for_axes(d.axes, d.shape, m)
+                         for k, d in moe.moe_schema(base).items()}
+                fns[where, cf] = make_sharded_moe(
+                    base, m, batch_axes(m, rows), specs, capacity_factor=cf)
+            fns["card", 16.0](p, h)                        # warm
+            lm_sync(device)
+            t0 = time.perf_counter()
+            y16, m16 = fns["card", 16.0](p, h)
+            lm_sync(device)
+            ms16 = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            moe.apply_moe(base, p, h, capacity_factor=16.0)
+            lm_sync(device)
+            ms_grouped = (time.perf_counter() - t0) * 1e3
+            err = float((y16 - want).abs().max() / want.abs().max())
+            require(torch.equal(m16["expert_load"], want_m["expert_load"]),
+                    f"lm parallel (b) {shape}: expert_load != apply_moe's")
+            require(int(m16["dropped_tokens"]) == 0,
+                    f"lm parallel (b) {shape}: tokens dropped at cf 16")
+            require(err <= LM_PAR_MOE_REL, f"lm parallel (b) {shape}: "
+                    f"max err / max {err} > {LM_PAR_MOE_REL}")
+            y125, m125 = fns["card", 1.25](p, h)
+            yc, mc = fns["cpu", 1.25](p_cpu, h.cpu())
+            err_cpu = float((y125.cpu() - yc).abs().max() / yc.abs().max())
+            for key in ("expert_load", "dropped_tokens"):
+                require(torch.equal(m125[key].cpu(), mc[key]),
+                        f"lm parallel (b) {shape} cf 1.25: {key} card != "
+                        f"cpu")
+            require(err_cpu <= LM_PAR_MOE_CPU_REL, f"lm parallel (b) "
+                    f"{shape} cf 1.25: card vs cpu {err_cpu}")
+            ep = base.num_experts % mesh.axis_size("model") == 0
+            lines.append(
+                f"lm parallel (b) {base.name} MoE layer f32, {rows} x {seq}"
+                f" tokens after layer 0's attention, mesh {mesh} "
+                f"({'EP all_to_all over model' if ep else 'no EP'}, FSDP "
+                f"gather over data {mesh.axis_size('data')}-way): cf 16 "
+                f"vs apply_moe on the card max err / max {err:.3e} (<= "
+                f"{LM_PAR_MOE_REL}), expert_load equal, dropped 0, "
+                f"{ms16:.3f} ms sharded, {ms_grouped:.3f} ms apply_moe "
+                f"(host clock, synchronized); cf 1.25 card vs cpu max err / "
+                f"max {err_cpu:.3e} (<= {LM_PAR_MOE_CPU_REL}), expert_load"
+                f" and dropped_tokens ({int(mc['dropped_tokens'])}) equal")
+    del params, p, p_cpu, want, y16, y125
+    # printed, not held: the full-depth prefill through ``moe_fn``
+    shape = run["meshes"][0]
+    mesh = make_host_mesh(shape, ("data", "model"), device=device)
+    full = model.make_params(base, seed=0, device=device)
+    weights = model.compute_copy(full)
+    del full
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    specs = {k: spec_for_axes(d.axes, d.shape, mesh)
+             for k, d in moe.moe_schema(base).items()}
+    fn = make_sharded_moe(base, mesh, batch_axes(mesh, rows), specs)
+    drops = []
+
+    def counted(p, x):
+        y, m = fn(p, x)
+        drops.append(m["dropped_tokens"])
+        return y, m
+    groups, _, _ = moe_dispatch_plan(base, mesh, rows, seq)
+    with torch.inference_mode():
+        want, _ = model.serve_prefill(base, weights, batch,
+                                      q_chunk=run["q_chunk"],
+                                      moe_groups=groups)
+        model.serve_prefill(base, weights, batch, q_chunk=run["q_chunk"],
+                            moe_fn=counted)               # warm
+        drops.clear()
+        lm_sync(device)
+        t0 = time.perf_counter()
+        got, _ = model.serve_prefill(base, weights, batch,
+                                     q_chunk=run["q_chunk"], moe_fn=counted)
+        lm_sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        dropped = sum(int(d) for d in drops)
+        one_group, _ = model.serve_prefill(base, weights, batch,
+                                           q_chunk=run["q_chunk"])
+        traced = lm_trace(lambda: model.serve_prefill(
+            base, weights, batch, q_chunk=run["q_chunk"], moe_fn=fn),
+            device)
+    vocab = slice(0, base.vocab_size)             # the padding is -inf
+    corr, rel = lm_corr_rel(got[..., vocab].float(), want[..., vocab].float())
+    corr1, rel1 = lm_corr_rel(one_group[..., vocab].float(),
+                              want[..., vocab].float())
+    n_moe = base.num_layers - int(base.first_layer_dense)
+    lines.append(
+        f"lm parallel (b) {base.name} full-depth prefill ({base.num_layers}"
+        f" layers, bf16 compute copy) through moe_fn on mesh {mesh}, "
+        f"{rows} x {seq}: {ms:.3f} ms, dropped_tokens {dropped} of "
+        f"{rows * seq * base.top_k * n_moe} items, {traced['kernels']} "
+        f"kernel launches; last-position logits against the grouped path "
+        f"({groups} groups): corr {corr:.7f}, max diff / max {rel:.5f}; "
+        f"the grouped path with 1 group against {groups}: corr "
+        f"{corr1:.7f}, max diff / max {rel1:.5f} (printed, not held: "
+        f"other token groups drop other items, and near-tie tokens "
+        f"reroute, ROADMAP §3)")
+    return lines
+
+
+def lm_par_step(device, rehearse: bool) -> list:
+    """Part (c): ``build_train_step(moe_impl="shard_map")`` on granite cut
+    to ``layers`` at full width, ``steps`` steps on ``mesh``:
+
+    * on the card's logical devices and on the same mesh of devices
+      without streams, bit for bit (losses, drops, parameters, moments):
+      the streams change nothing;
+    * the first step's loss against the same step on the CPU, and
+      against ``moe_impl="gspmd"`` on the card, within ``floor`` (1e-3)
+      plus twice the gspmd path's own card/CPU gap.  granite's router
+      reads bfloat16 activations whose logits reach the hundreds, so the
+      card and the CPU route a few near-tie tokens apart on either path
+      (ROADMAP §3); the gspmd path's gap measures that in this run.
+      With one row, each shard's tokens are one of the grouped path's
+      groups at the same capacity, but the grouped path rounds its
+      router logits and sums its items in bfloat16, as the reference's
+      grouped program does, the sharded path in float32, as its
+      ``shard_map`` program does.  The later steps' losses are printed:
+      each update moves the rerouted tokens' weights apart.
+
+    The first step's gradient, card (``mu``, a tenth of it) against CPU,
+    is printed."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.engine import LogicalDevice
+    from repro_torch.data import DataConfig, TokenPipeline, device_batch
+    from repro_torch.launch.mesh import Mesh, make_host_mesh
+    from repro_torch.models import model
+    from repro_torch.models.moe import moe_schema
+    from repro_torch.models.moe_shard import make_sharded_moe
+    from repro_torch.parallel.sharding import (
+        batch_axes, moe_dispatch_plan, spec_for_axes)
+    from repro_torch.train import OptConfig, build_train_step, init_state
+    run = dict(LM_PAR_STEP)
+    if rehearse:
+        # the reduced config's router is ill-conditioned: its loss moves
+        # by 0.011 between two roundings (tests/torch_lm_train_cases.py)
+        run.update(seq=16, q_chunk=8, floor=2e-2)
+    cut = dataclasses.replace(lm_config(run["arch"], None, rehearse),
+                              num_layers=run["layers"])
+    rows, seq, axes = run["rows"], run["seq"], ("data", "model")
+    shape = ShapeSpec("smoke", "train", seq, rows)
+    pipe = TokenPipeline(DataConfig(vocab_size=cut.vocab_size, batch=rows,
+                                    seq_len=seq, seed=2))
+    opt_cfg = OptConfig(lr=3e-4, warmup_steps=1, total_steps=run["steps"])
+    state = {k: v.detach().cpu() for k, v in model.make_params(
+        cut, seed=0, device=device).state_dict().items()}
+    plain = Mesh(run["mesh"], axes, [
+        LogicalDevice(i, device, None)
+        for i in range(int(np.prod(run["mesh"])))])
+    cpu_mesh = make_host_mesh(run["mesh"], axes, device="cpu")
+    out = {}
+    for label, mesh, impl in (
+            ("card", make_host_mesh(run["mesh"], axes, device=device),
+             "shard_map"),
+            ("card without streams", plain, "shard_map"),
+            ("card gspmd", plain, "gspmd")):
+        where = mesh.flat_devices[0].device
+        step, _, _ = build_train_step(cut, mesh, shape, opt_cfg,
+                                      q_chunk=run["q_chunk"], remat=False,
+                                      moe_impl=impl)
+        m = model.LanguageModel(cut, device=where).requires_grad_()
+        m.load_state_dict(state)
+        opt = init_state(m)
+        losses, drops, mu = [], [], None
+        t0 = time.perf_counter()
+        for i in range(run["steps"]):
+            m, opt, met = step(m, opt, device_batch(pipe.batch_at(i),
+                                                    where))
+            losses.append(float(met["loss"]))
+            drops.append(int(met["dropped_tokens"]))
+            if i == 0:
+                mu = {k: v.detach().cpu().clone()
+                      for k, v in opt["mu"].items()}
+        lm_sync(device)
+        out[label] = dict(losses=losses, drops=drops, mu=mu,
+                          seconds=time.perf_counter() - t0,
+                          final=(m, opt) if impl == "shard_map" else None)
+        del m, opt
+    # the first step's loss and gradient on the CPU, through the sharded
+    # MoE over CPU devices; the gspmd path's first loss there
+    m = model.LanguageModel(cut, device="cpu").requires_grad_()
+    m.load_state_dict(state)
+    cpu_batch = device_batch(pipe.batch_at(0), "cpu")
+    t0 = time.perf_counter()
+    loss, met = model.loss_fn(cut, m, cpu_batch, q_chunk=run["q_chunk"],
+                              moe_fn=make_sharded_moe(
+                                  cut, cpu_mesh, batch_axes(cpu_mesh, rows),
+                                  {k: spec_for_axes(d.axes, d.shape,
+                                                    cpu_mesh)
+                                   for k, d in moe_schema(cut).items()}))
+    names, leaves = zip(*m.named_parameters())
+    cpu = dict(losses=[float(loss.detach())],
+               drops=[int(met["dropped_tokens"])],
+               mu=dict(zip(names, torch.autograd.grad(loss, leaves))),
+               seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cpu_gspmd, _ = model.loss_fn(
+            cut, m, cpu_batch, q_chunk=run["q_chunk"],
+            moe_groups=moe_dispatch_plan(cut, cpu_mesh, rows, seq)[0])
+    cpu_gspmd, cpu_gspmd_s = float(cpu_gspmd), time.perf_counter() - t0
+    del m, loss, leaves
+    card, bare = out["card"], out["card without streams"]
+    gspmd = out["card gspmd"]
+    (m_a, o_a), (m_b, o_b) = card["final"], bare["final"]
+    same = (card["losses"] == bare["losses"]
+            and card["drops"] == bare["drops"]
+            and all(torch.equal(p, q) for p, q in zip(m_a.parameters(),
+                                                      m_b.parameters()))
+            and all(torch.equal(o_a[k][n], o_b[k][n])
+                    for k in ("mu", "nu") for n in o_a[k]))
+    require(same, "lm parallel (c): the step on the card's streams differs "
+            "from the step without them")
+    for r in out.values():
+        r.pop("final")
+    del m_a, o_a, m_b, o_b
+    # mu after the first step is a tenth of its gradient: the correlation
+    # compares the two gradients
+    require(all(np.isfinite(card["losses"] + gspmd["losses"])),
+            "lm parallel (c): loss not finite")
+    first = card["losses"][0]
+    gap = abs(gspmd["losses"][0] - cpu_gspmd) / abs(cpu_gspmd)
+    bound = run["floor"] + 2 * gap
+    d_cpu = abs(first - cpu["losses"][0]) / abs(cpu["losses"][0])
+    d_gs = abs(first - gspmd["losses"][0]) / abs(gspmd["losses"][0])
+    for what, d in (("card vs cpu", d_cpu), ("shard_map vs gspmd", d_gs)):
+        require(d <= bound, f"lm parallel (c) {what}: first loss |d| / "
+                f"loss {d} over {bound}")
+    worst, worst_name = float("inf"), ""
+    for name, want in cpu["mu"].items():
+        corr, _ = lm_corr_rel(card["mu"][name].to(device), want.to(device))
+        if corr < worst:
+            worst, worst_name = corr, name
+
+    def fmt(xs):
+        return ", ".join(f"{x:.6f}" for x in xs)
+    return [f"lm parallel (c) train step moe_impl=shard_map, {cut.name} "
+            f"{cut.num_layers} layers at full width, mesh {run['mesh']}, "
+            f"batch {rows} x {seq}, {run['steps']} steps: on the card's "
+            f"streams equal to the same without streams bit for bit "
+            f"(losses, drops, parameters, moments); losses card "
+            f"{fmt(card['losses'])}, gspmd card {fmt(gspmd['losses'])}; "
+            f"first loss cpu {cpu['losses'][0]:.6f} (card vs cpu |d| / loss "
+            f"{d_cpu:.2e}), card vs gspmd {d_gs:.2e}, held to {bound:.2e} "
+            f"({run['floor']} + twice the gspmd path's own card/cpu gap "
+            f"{gap:.2e}: cpu {cpu_gspmd:.6f}); dropped_tokens card "
+            f"{card['drops']} gspmd {gspmd['drops']} cpu {cpu['drops']}; "
+            f"step 0 gradients card (its mu) vs cpu min corr {worst:.7f} "
+            f"({worst_name}; printed, not held: near-tie tokens reroute); "
+            f"seconds card {card['seconds']:.3f}, without streams "
+            f"{bare['seconds']:.3f}, gspmd {gspmd['seconds']:.3f}, cpu loss "
+            f"and gradient {cpu['seconds']:.3f}, cpu gspmd loss "
+            f"{cpu_gspmd_s:.3f}"]
+
+
+def lm_layer_tree(tree) -> dict:
+    """A ``ParamTree`` as nested dicts of its tensors."""
+    out = {k: v for k, v in tree._parameters.items()}
+    out.update({k: lm_layer_tree(v) for k, v in tree._modules.items()})
+    return out
+
+
+def lm_par_pipeline(device, rehearse: bool) -> list:
+    """Part (d): qwen2-0.5b's layers in GPipe stages over logical devices
+    (``split_stages``, ``pipeline_apply``) against the sequential
+    ``run_stack`` of each microbatch, the same ops in the same order:
+    outputs bit for bit; the gradient of Σ outputs with respect to the
+    stacked weights, held to ``LM_PAR_PIPE_REL``."""
+    import torch
+    from repro_torch.data import DataConfig, TokenPipeline, device_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model
+    from repro_torch.parallel.pipeline import pipeline_apply, split_stages
+    run = dict(LM_PAR_PIPE)
+    if rehearse:
+        run.update(seq=16, q_chunk=8)
+    cfg = lm_config(run["arch"], None, rehearse)
+    n_stages, micro, rows, seq = (run["stages"], run["micro"], run["rows"],
+                                  run["seq"])
+    params = model.make_params(cfg, seed=0, device=device)
+
+    def as_leaves(tree):
+        return {k: as_leaves(v) if isinstance(v, dict)
+                else v.detach().requires_grad_() for k, v in tree.items()}
+    stacked = as_leaves(split_stages(
+        [lm_layer_tree(l) for l in params.layers], n_stages))
+    leaves = lm_flat(stacked)
+    per = cfg.num_layers // n_stages
+    sig = model.layer_sigs(cfg)[0]
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    batch=rows * micro, seq_len=seq, seed=3))
+    with torch.no_grad():
+        emb = model.embed_tokens(cfg, params, device_batch(
+            pipe.batch_at(0), device))
+    mbs = emb.reshape(micro, rows, seq, cfg.d_model)
+    ctx = dict(positions=model._positions_for(cfg, {}, rows, seq, device),
+               causal=True, q_chunk=run["q_chunk"], rec_chunk=256,
+               want_cache=False, enc_out=None)
+
+    def layer(p, i):
+        return {k: (layer(v, i) if isinstance(v, dict) else v[i])
+                for k, v in p.items()}
+
+    def stage_fn(p, x):
+        return model.run_stack(cfg, [layer(p, i) for i in range(per)],
+                               [([sig], per)], x, ctx)[0]
+    mesh = make_host_mesh((n_stages,), ("pod",), device=device)
+    lm_sync(device)
+    t0 = time.perf_counter()
+    out = pipeline_apply(stage_fn, mesh)(stacked, mbs)
+    piped = torch.autograd.grad(out.float().sum(), list(leaves.values()))
+    lm_sync(device)
+    pipe_s = time.perf_counter() - t0
+    all_layers = [layer(layer(stacked, s), i) for s in range(n_stages)
+                  for i in range(per)]
+    t0 = time.perf_counter()
+    seq_out = torch.stack([model.run_stack(
+        cfg, all_layers, model.layer_groups(cfg), mbs[j], ctx)[0]
+        for j in range(micro)])
+    seq_g = torch.autograd.grad(seq_out.float().sum(),
+                                list(leaves.values()))
+    lm_sync(device)
+    seq_s = time.perf_counter() - t0
+    require(torch.equal(out, seq_out), "lm parallel (d): pipeline outputs "
+            "!= the sequential stack's")
+    worst, n_equal = 0.0, 0
+    for name, a, b in zip(leaves, piped, seq_g):
+        require(bool(torch.isfinite(a).all()), f"lm parallel (d): {name}")
+        n_equal += bool(torch.equal(a, b))
+        worst = max(worst, float((a - b).abs().max() / b.abs().max()))
+    require(worst <= LM_PAR_PIPE_REL, f"lm parallel (d): gradient max err"
+            f" / max {worst} > {LM_PAR_PIPE_REL}")
+    return [f"lm parallel (d) pipeline {cfg.name} {cfg.num_layers} layers "
+            f"in {n_stages} stages of {per} over {mesh}, {micro} "
+            f"microbatches of {rows} x {seq}: {micro + n_stages - 1} ticks; "
+            f"outputs equal to the sequential run_stack bit for bit; "
+            f"gradient of the summed outputs over {len(leaves)} stacked "
+            f"leaves: {n_equal} bit for bit, max err / max {worst:.3e} "
+            f"(<= {LM_PAR_PIPE_REL}: the four microbatches' contributions "
+            f"are added in another order); forward + backward seconds "
+            f"pipeline {pipe_s:.3f} sequential {seq_s:.3f}"]
+
+
+def lm_par_quant(device, rehearse: bool) -> list:
+    """Part (e): qwen2-0.5b's gradients of ``shards`` micro-batches, one
+    per logical ``data`` shard, through ``quantized_tree_psum`` at each
+    width: every shard's reduced values bit for bit to the CPU path's
+    ``quantized_psum`` (hence the int32 sums: the same scale times an
+    integer);
+    each leaf's error to the exact sum within n · scale / (2 · qmax) (+
+    float32 rounding of the scaled and dequantized values, n · scale ·
+    2⁻²¹); Σ
+    residuals + reduced to Σ gradients within n · scale · 2⁻¹⁹; and the
+    bytes a shard would send."""
+    import torch
+    from repro_torch.data import DataConfig, TokenPipeline, device_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model
+    from repro_torch.parallel.compression import (
+        quantized_psum, quantized_tree_psum)
+    run = dict(LM_PAR_QUANT)
+    if rehearse:
+        run.update(seq=16, q_chunk=8)
+    cfg = lm_config(run["arch"], None, rehearse)
+    n = run["shards"]
+    m = model.make_params(cfg, seed=0, device=device, trainable=True)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    batch=run["rows"], seq_len=run["seq"],
+                                    seed=4))
+    names, leaves = zip(*m.named_parameters())
+    trees = []
+    for i in range(n):
+        loss, _ = model.loss_fn(cfg, m, device_batch(pipe.batch_at(i),
+                                                     device),
+                                q_chunk=run["q_chunk"])
+        trees.append(dict(zip(names, torch.autograd.grad(loss, leaves))))
+    del m, leaves
+    n_values = sum(t.numel() for t in trees[0].values())
+    mesh = make_host_mesh((n,), ("data",), device=device)
+    cpu_mesh = make_host_mesh((n,), ("data",), device="cpu")
+    cpu_trees = [{k: v.cpu() for k, v in t.items()} for t in trees]
+    lines = []
+    for bits in run["bits"]:
+        qmax = 2 ** (bits - 1) - 1
+        lm_sync(device)
+        t0 = time.perf_counter()
+        red, res = quantized_tree_psum(trees, mesh, "data", bits=bits)
+        lm_sync(device)
+        card_ms = (time.perf_counter() - t0) * 1e3
+        worst_err = worst_sum = cpu_s = 0.0
+        for k in names:
+            t0 = time.perf_counter()
+            cpu_red = quantized_psum([t[k] for t in cpu_trees], cpu_mesh,
+                                     "data", bits=bits)
+            cpu_s += time.perf_counter() - t0
+            require(torch.equal(red[0][k].cpu(), cpu_red[0]) and all(
+                torch.equal(r[k], red[0][k]) for r in red) and all(
+                torch.equal(r, cpu_red[0]) for r in cpu_red),
+                f"lm parallel (e) {bits} bits: {k} card != cpu")
+            scale = max(float(t[k].abs().max()) for t in trees)
+            exact = sum(t[k].double() for t in trees)
+            err = float((red[0][k].double() - exact).abs().max())
+            require(err <= n * scale / (2 * qmax) + n * scale * 2 ** -21,
+                    f"lm parallel (e) {bits} bits: {k} error {err}")
+            back, gsum = red[0][k], trees[0][k]
+            for r in res:
+                back = back + r[k]
+            for t in trees[1:]:
+                gsum = gsum + t[k]
+            off = float((back - gsum).abs().max())
+            require(off <= n * scale * 2 ** -19, f"lm parallel (e) {bits} "
+                    f"bits: {k} residuals + reduced off by {off}")
+            if scale > 0:
+                worst_err = max(worst_err, err / (n * scale / (2 * qmax)))
+                worst_sum = max(worst_sum, off / (n * scale))
+        wire = n_values * bits // 8
+        lines.append(
+            f"lm parallel (e) quantized_tree_psum {bits} bits, {cfg.name} "
+            f"gradients of {n} micro-batches of {run['rows']} x "
+            f"{run['seq']} over {mesh} ({len(names)} leaves, {n_values} "
+            f"float32 values a shard): every shard's reduced values equal "
+            f"to the cpu path's bit for bit (so are the int32 sums); worst "
+            f"leaf error {worst_err:.4f} of "
+            f"n scale / (2 qmax); residuals + reduced vs the gradients' "
+            f"sum worst {worst_sum:.3e} x n scale; bytes a shard sends "
+            f"{wire} at {bits} bits vs {n_values * 4} in float32 "
+            f"({n_values * 4 / wire:.1f}x less); {card_ms:.3f} ms on the "
+            f"card with the residuals, {cpu_s:.3f} s on the cpu without")
+        del red, res, cpu_red
+    return lines
+
+
+def lm_parallel_phase(device, rehearse: bool) -> None:
+    """The parallel layer over logical devices on the card: parts (a)-(e)
+    as the module docstring says, each with its seconds and peak memory."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    for name, part in (("(a) placements", lambda: lm_par_placements(
+                            rehearse)),
+                       ("(b) sharded MoE", lambda: lm_par_moe(
+                           device, rehearse)),
+                       ("(c) shard_map train step", lambda: lm_par_step(
+                           device, rehearse)),
+                       ("(d) pipeline", lambda: lm_par_pipeline(
+                           device, rehearse)),
+                       ("(e) quantized all-reduce", lambda: lm_par_quant(
+                           device, rehearse))):
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for line in part():
+            log(line)
+        lm_sync(device)
+        log(f"lm parallel part {name}: {time.perf_counter() - t0:.3f} s, "
+            f"peak memory {lm_peak(device)}; phase at "
+            f"{time.perf_counter() - t_phase:.3f} s")
+
+
 def phase_done(name: str, t_start: float) -> None:
     log(f"phase {name} done at {time.perf_counter() - t_start:.3f} s")
 
@@ -3186,6 +3828,8 @@ def main(argv=None) -> int:
     phase_done("LM recurrent serving", t_start)
     lm_training_phase(device, args.rehearse)
     phase_done("LM training", t_start)
+    lm_parallel_phase(device, args.rehearse)
+    phase_done("LM parallel", t_start)
 
     log(f"chip_smoke elapsed {time.perf_counter() - t_start:.3f} s")
     if args.rehearse:

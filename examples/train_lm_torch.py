@@ -50,8 +50,8 @@ def main(argv=None):
     shape = ShapeSpec("demo", "train", args.seq, args.batch)
     opt_cfg = OptConfig(lr=1e-3, warmup_steps=20, total_steps=args.steps,
                         weight_decay=0.01)
-    step_fn = build_train_step(cfg, shape, opt_cfg, q_chunk=args.seq,
-                               remat=False)
+    step_fn, _, _ = build_train_step(cfg, None, shape, opt_cfg,
+                                     q_chunk=args.seq, remat=False)
 
     params = make_params(cfg, seed=0, device=device, trainable=True)
     opt = init_state(params)

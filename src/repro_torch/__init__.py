@@ -80,8 +80,8 @@ The LM substrate's serving path (the attention architectures of
 and its training path in ``repro_torch.train`` and ``repro_torch.data``::
 
     params = make_params(cfg, seed=0, trainable=True)  # float32 masters
-    step = build_train_step(cfg, shape, OptConfig(), remat=True,
-                            grad_accum=4)
+    step, _, _ = build_train_step(cfg, None, shape, OptConfig(),
+                                  remat=True, grad_accum=4)
     params, opt, metrics = step(params, init_state(params),
                                 device_batch(pipe.batch_at(0), "cuda"))
 """

@@ -8,10 +8,13 @@ async checkpoints and the fault coordinator, on the card.
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
         --reduced --device cpu                           # plain torch, host
 
-The port of ``repro.launch.train``, with the same flags but the mesh's
-(``--multi-pod``; the parallel slice brings it), and ``--device``:
-without it the step runs on the CUDA device and refuses to start
-without one.  ``--reduced`` is ``store_true``, so the full config is the
+The port of ``repro.launch.train``, with the same flags and
+``--device``: without it the step runs on the CUDA device and refuses to
+start without one.  The mesh is (n, 1) over (data, model), n logical
+devices from ``default_devices`` (one per card; one on the CPU), or with
+``--multi-pod`` (or n ≥ 256) the production mesh, which is printed and
+refused below its 512 devices, as the reference cannot build it
+either.  ``--reduced`` is ``store_true``, so the full config is the
 default, as in the reference.  Each step prints a line with its time on
 the host's clock after the card is synchronised, its tokens/s and the
 card's peak memory so far; the last line gives the loss's first and
@@ -42,6 +45,9 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--remat", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="use the 2x16x16 production mesh (needs 512 "
+                    "devices)")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default=None,
                     help="'cpu' runs plain torch on the host "
@@ -50,29 +56,43 @@ def main(argv=None):
 
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.distributed import default_devices
     from repro_torch.core.engine import resolve_device
     from repro_torch.data import DataConfig, TokenPipeline, device_batch
+    from repro_torch.launch.mesh import Mesh, make_production_mesh
     from repro_torch.models.model import count_params, make_params
     from repro_torch.train import (
         CheckpointManager, Coordinator, OptConfig, StragglerDetector,
         build_train_step, init_state)
 
     device = resolve_device(args.device)
+    devices = default_devices(None, args.device)
+    n = len(devices)
+    if args.multi_pod or n >= 256:
+        mesh = make_production_mesh(multi_pod=args.multi_pod)
+        print(f"mesh {dict(zip(mesh.axis_names, mesh.shape))} "
+              f"({mesh.size} devices)", flush=True)
+        if n < mesh.size:
+            raise SystemExit(f"the production mesh needs {mesh.size} "
+                             f"devices; {n} present")
+    else:
+        mesh = Mesh((n, 1), ("data", "model"), devices)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     shape = ShapeSpec("cli", "train", args.seq, args.batch)
     opt_cfg = OptConfig(lr=args.lr, total_steps=args.steps,
                         warmup_steps=min(100, args.steps // 10 + 1))
-    step_fn = build_train_step(cfg, shape, opt_cfg,
-                               q_chunk=min(512, args.seq), remat=args.remat,
-                               grad_accum=args.grad_accum)
+    step_fn, _, _ = build_train_step(
+        cfg, mesh, shape, opt_cfg, q_chunk=min(512, args.seq),
+        remat=args.remat, grad_accum=args.grad_accum)
 
     params = make_params(cfg, seed=0, device=device, trainable=True)
     opt = init_state(params)
     print(f"{args.arch}: {count_params(cfg)/1e6:.1f}M params on {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
-             if device.type == "cuda" else ""))
+             if device.type == "cuda" else "")
+          + f", mesh {dict(zip(mesh.axis_names, mesh.shape))}")
 
     pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
                                     batch=args.batch, seq_len=args.seq))

@@ -47,6 +47,25 @@ def tree_paths(tree, prefix=()):
         yield from tree_paths(tree[k], prefix + (k,))
 
 
+def abstract_params(schema):
+    """The schema as a tree of tensors on the ``meta`` device (shape and
+    dtype, no storage): the dry-run's parameter view."""
+    def walk(node):
+        if is_def(node):
+            return torch.empty(node.shape, dtype=node.dtype, device="meta")
+        return {k: walk(v) for k, v in node.items()}
+    return walk(schema)
+
+
+def schema_axes(schema):
+    """Tree of logical-axis tuples mirroring the schema."""
+    def walk(node):
+        if is_def(node):
+            return node.axes
+        return {k: walk(v) for k, v in node.items()}
+    return walk(schema)
+
+
 def count_schema_params(schema) -> int:
     return sum(int(np.prod(d.shape)) for _, d in tree_paths(schema))
 

@@ -2,8 +2,9 @@
 (M-RoPE), encoder-decoder and the recurrent ones (xLSTM's mLSTM and sLSTM,
 RecurrentGemma's RG-LRU with local attention).
 
-The port of ``repro.models.model``'s serving path and its training loss
-(:func:`loss_fn`, with ``remat``).  The reference groups
+The port of ``repro.models.model``'s serving path, its training loss
+(:func:`loss_fn`, with ``remat``) and its abstract parameters
+(:func:`make_abstract_params`, :func:`params_axes`).  The reference groups
 layers of one signature into stacked, scanned supergroups; the port keeps
 one module per layer instead (:class:`LanguageModel`: an ``nn.ModuleList``
 of blocks, each leaf named as the reference names it — ``norm1.scale``,
@@ -34,8 +35,8 @@ from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec_mod
 from repro_torch.models.common import (
-    ParamDef, ParamTree, apply_norm, init_params, norm_schema, pad_vocab,
-    tree_paths)
+    ParamDef, ParamTree, abstract_params, apply_norm, init_params,
+    norm_schema, pad_vocab, schema_axes, tree_paths)
 
 Sig = tuple  # (mixer_kind, ffn_kind)
 
@@ -173,6 +174,17 @@ def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
     return total
 
 
+def make_abstract_params(cfg: ArchConfig, num_layers: int | None = None):
+    """The reference's grouped parameter tree as ``meta`` tensors (shape
+    and dtype, no storage)."""
+    return abstract_params(param_schema(cfg, num_layers))
+
+
+def params_axes(cfg: ArchConfig, num_layers: int | None = None):
+    """The logical axes of each leaf of :func:`make_abstract_params`."""
+    return schema_axes(param_schema(cfg, num_layers))
+
+
 # ---------------------------------------------------------- the module
 
 class LanguageModel(ParamTree):
@@ -300,8 +312,13 @@ def apply_block(cfg, sig: Sig, p, x, ctx, s=None):
     if ffn_kind != "none":
         h2 = apply_norm(cfg, p["norm2"], s).to(x.dtype)
         if ffn_kind == "moe":
-            y2, moe_metrics = moe_mod.apply_moe(
-                cfg, p["moe"], h2, groups=ctx.get("moe_groups", 1))
+            if ctx.get("moe_fn") is not None:
+                y2, moe_metrics = ctx["moe_fn"](p["moe"], h2)
+            else:
+                y2, moe_metrics = moe_mod.apply_moe(
+                    cfg, p["moe"], h2, groups=ctx.get("moe_groups", 1),
+                    ep_sharder=ctx.get("ep_sharder"),
+                    group_sharder=ctx.get("moe_group_sharder"))
             metrics.update(moe_metrics)
         else:
             y2 = ffn_mod.apply_ffn(cfg, p["ffn"], h2)
@@ -377,10 +394,12 @@ def run_stack(cfg, layers, groups, x, ctx):
     ``torch.utils.checkpoint.checkpoint`` (non-reentrant), as the
     reference wraps each scan body in ``jax.checkpoint``: the backward
     recomputes a layer from its inputs instead of keeping its
-    activations."""
+    activations.  ``ctx["sharder"]`` constrains the residual stream after
+    every block, as the reference's does."""
     metrics = _zero_metrics(cfg, x.device)
     caches = []
     sigs, reads_carry, scanned = carried_inputs(groups)
+    sharder = ctx.get("sharder") or (lambda t: t)
     s = None
     for sig, p, carry in zip(sigs, layers, reads_carry):
         if ctx.get("remat"):
@@ -388,6 +407,7 @@ def run_stack(cfg, layers, groups, x, ctx):
                                 None if carry else s, use_reentrant=False)
         else:
             x, aux = apply_block(cfg, sig, p, x, ctx, None if carry else s)
+        x = sharder(x)
         s = aux["sum"]
         metrics = _merge_metrics(metrics, aux["metrics"])
         caches.append(aux["cache"])
@@ -395,7 +415,7 @@ def run_stack(cfg, layers, groups, x, ctx):
 
 
 def encode(cfg, params, src_embeds, *, q_chunk: int = 512,
-           remat: bool = False):
+           remat: bool = False, sharder=None):
     """The encoder stack over ``src_embeds`` (B, S_src, d) ->
     (encoder output in bfloat16, its positions)."""
     src = src_embeds.to(torch.bfloat16)
@@ -403,7 +423,7 @@ def encode(cfg, params, src_embeds, *, q_chunk: int = 512,
     positions = torch.arange(ss, dtype=torch.int32,
                              device=src.device).expand(bs, ss)
     ctx = dict(positions=positions, causal=False, q_chunk=q_chunk,
-               want_cache=False, enc_out=None, remat=remat)
+               want_cache=False, enc_out=None, remat=remat, sharder=sharder)
     enc = params["encoder"]
     groups = [([layer_sigs(cfg, 1)[0]], cfg.encoder_layers)]
     x, s, _, _ = run_stack(cfg, enc.layers, groups, src, ctx)
@@ -413,22 +433,39 @@ def encode(cfg, params, src_embeds, *, q_chunk: int = 512,
 
 def forward(cfg: ArchConfig, params, batch, *, q_chunk: int = 512,
             rec_chunk: int = 256, want_cache: bool = False,
-            moe_groups: int = 1, enc_out=None, remat: bool = False):
+            sharder=None, remat: bool = False, scan_layers: bool = True,
+            rec_unroll: bool = False, moe_groups: int = 1,
+            ep_sharder=None, moe_group_sharder=None, moe_fn=None,
+            enc_out=None):
     """Full-sequence forward -> (final hidden states, metrics, per-layer
     caches).  An encoder-decoder encodes ``batch["src_embeds"]`` unless
     given its ``enc_out`` (from :func:`encode`).  ``rec_chunk`` is the
     mLSTM's chunk length; ``remat`` recomputes each layer in the backward
-    (:func:`run_stack`)."""
+    (:func:`run_stack`).
+
+    The parallel layer's hooks, with the reference's names: ``sharder``
+    constrains the residual stream (after the embedding and each block),
+    ``moe_groups``, ``ep_sharder`` and ``moe_group_sharder`` go to each
+    ``apply_moe`` (``parallel.sharding.moe_dispatch_plan``), and
+    ``moe_fn(p, x) -> (y, metrics)`` replaces ``apply_moe`` when given
+    (``models.moe_shard.make_sharded_moe``).  ``scan_layers`` and
+    ``rec_unroll`` choose how the reference compiles its layer loop and
+    the mLSTM's chunk loop; the port runs both eagerly, so they change
+    nothing here."""
+    del scan_layers, rec_unroll
     x = embed_tokens(cfg, params, batch)
+    if sharder is not None:
+        x = sharder(x)
     b, s, _ = x.shape
     ctx = dict(positions=_positions_for(cfg, batch, b, s, x.device),
                causal=True, q_chunk=q_chunk, rec_chunk=rec_chunk,
-               want_cache=want_cache, enc_out=None, moe_groups=moe_groups,
-               remat=remat)
+               want_cache=want_cache, enc_out=None, sharder=sharder,
+               remat=remat, moe_groups=moe_groups, ep_sharder=ep_sharder,
+               moe_group_sharder=moe_group_sharder, moe_fn=moe_fn)
     if cfg.is_encdec:
         if enc_out is None:
             enc_out = encode(cfg, params, batch["src_embeds"],
-                             q_chunk=q_chunk, remat=remat)
+                             q_chunk=q_chunk, remat=remat, sharder=sharder)
         ctx["enc_out"], ctx["enc_positions"] = enc_out
     x, s, metrics, caches = run_stack(
         cfg, params.layers, layer_groups(cfg, len(params.layers)), x, ctx)
@@ -450,7 +487,10 @@ def _mask_padded_vocab(cfg, logits):
 
 
 def loss_fn(cfg: ArchConfig, params, batch, *, q_chunk: int = 512,
-            rec_chunk: int = 256, remat: bool = False, moe_groups: int = 1):
+            rec_chunk: int = 256, sharder=None, logits_sharder=None,
+            remat: bool = False, scan_layers: bool = True,
+            rec_unroll: bool = False, moe_groups: int = 1, ep_sharder=None,
+            moe_group_sharder=None, moe_fn=None):
     """Cross-entropy + MoE aux losses -> (loss, metrics).  labels < 0 are
     masked; the loss is the masked mean over ``max(count, 1)``.
 
@@ -460,14 +500,21 @@ def loss_fn(cfg: ArchConfig, params, batch, *, q_chunk: int = 512,
     ``metrics`` holds the forward's (the MoE ones) and ``nll``.  The
     label's logit is a ``gather``, where the reference reduces a one-hot
     mask (to keep GSPMD from gathering the vocabulary): both pick the
-    same element.
+    same element.  ``logits_sharder`` constrains the logits; the other
+    hooks are :func:`forward`'s.
     """
     x, metrics, _ = forward(cfg, params, batch, q_chunk=q_chunk,
-                            rec_chunk=rec_chunk, moe_groups=moe_groups,
-                            remat=remat)
+                            rec_chunk=rec_chunk, sharder=sharder,
+                            remat=remat, scan_layers=scan_layers,
+                            rec_unroll=rec_unroll, moe_groups=moe_groups,
+                            ep_sharder=ep_sharder,
+                            moe_group_sharder=moe_group_sharder,
+                            moe_fn=moe_fn)
     labels = batch["labels"].long()
-    logits = _mask_padded_vocab(
-        cfg, logits_from_hidden(cfg, params, x)).float()
+    logits = logits_from_hidden(cfg, params, x)
+    if logits_sharder is not None:
+        logits = logits_sharder(logits)
+    logits = _mask_padded_vocab(cfg, logits).float()
     lse = torch.logsumexp(logits, dim=-1)                       # (b, s)
     ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
     msk = (labels >= 0).float()
@@ -480,13 +527,21 @@ def loss_fn(cfg: ArchConfig, params, batch, *, q_chunk: int = 512,
 
 
 def serve_prefill(cfg: ArchConfig, params, batch, *, q_chunk: int = 512,
-                  rec_chunk: int = 256, moe_groups: int = 1, enc_out=None):
+                  rec_chunk: int = 256, sharder=None,
+                  scan_layers: bool = True, rec_unroll: bool = False,
+                  moe_groups: int = 1, ep_sharder=None,
+                  moe_group_sharder=None, moe_fn=None, enc_out=None):
     """Prefill: full forward -> (last-position logits (B, 1, V_pad), the
     padded vocab masked to ``NEG_INF``; per-layer caches: ``{"k", "v"}``
-    for attention, ``{"state": (...)}`` for a recurrent block)."""
+    for attention, ``{"state": (...)}`` for a recurrent block).  The
+    hooks are :func:`forward`'s."""
     x, _, caches = forward(cfg, params, batch, q_chunk=q_chunk,
                            rec_chunk=rec_chunk, want_cache=True,
-                           moe_groups=moe_groups, enc_out=enc_out)
+                           sharder=sharder, scan_layers=scan_layers,
+                           rec_unroll=rec_unroll, moe_groups=moe_groups,
+                           ep_sharder=ep_sharder,
+                           moe_group_sharder=moe_group_sharder,
+                           moe_fn=moe_fn, enc_out=enc_out)
     logits = logits_from_hidden(cfg, params, x[:, -1:])
     return _mask_padded_vocab(cfg, logits), caches
 

@@ -1,7 +1,6 @@
 """Mixture-of-Experts: top-k router + capacity-based scatter dispatch.
 
-The port of ``repro.models.moe`` (``ep_sharder``/``group_sharder`` wait
-for the parallel slice).  Tokens split into ``groups`` contiguous groups,
+The port of ``repro.models.moe``.  Tokens split into ``groups`` contiguous groups,
 each with capacity C = max(ceil(T_g·k/E · cf), 4); an item past its
 expert's capacity goes to the group's drop bin and contributes nothing.
 
@@ -55,8 +54,14 @@ def _expert_ffn(cfg, p, xe):
     return torch.bmm(h, p["w_down"].to(h.dtype))
 
 
-def apply_moe(cfg, p, x, capacity_factor: float = 1.25, groups: int = 1):
+def apply_moe(cfg, p, x, capacity_factor: float = 1.25, groups: int = 1,
+              ep_sharder=None, group_sharder=None):
     """x: (B, S, d) -> (out, aux_metrics).
+
+    ``group_sharder`` holds every (G, ...) dispatch tensor to the groups'
+    layout and ``ep_sharder`` the (E, G·C, d) expert batch to EP
+    (``repro_torch.parallel.sharding.moe_dispatch_plan``): constraints,
+    which return their tensor unchanged.
 
     Metrics as the reference's: ``moe_aux_loss``, ``moe_z_loss``,
     ``expert_load`` (int32 items routed to each expert, dropped ones
@@ -68,10 +73,11 @@ def apply_moe(cfg, p, x, capacity_factor: float = 1.25, groups: int = 1):
     e, k = cfg.num_experts, cfg.top_k
     g = groups if t % max(groups, 1) == 0 else 1
     tl = t // g
-    xg = x.reshape(g, tl, d)                                   # (G, Tl, d)
+    gsh = group_sharder or (lambda a: a)
+    xg = gsh(x.reshape(g, tl, d))                              # (G, Tl, d)
     xt = xg.reshape(t, d)
 
-    logits32 = (xg @ p["router"].to(xg.dtype)).float()
+    logits32 = gsh((xg @ p["router"].to(xg.dtype)).float())
     probs = torch.softmax(logits32, dim=-1)
     # top-k by a stable descending sort: ties keep the lower index first
     gate_vals, expert_idx = torch.sort(probs, dim=-1, descending=True,
@@ -84,9 +90,9 @@ def apply_moe(cfg, p, x, capacity_factor: float = 1.25, groups: int = 1):
 
     # flat work items per group, k consecutive items per token
     i_items = tl * k
-    ge = expert_idx.reshape(g, i_items)                        # (G, I)
-    gg = gate_vals.reshape(g, i_items)
-    onehot = F.one_hot(ge, e).to(torch.int32)                  # (G, I, E)
+    ge = gsh(expert_idx.reshape(g, i_items))                   # (G, I)
+    gg = gsh(gate_vals.reshape(g, i_items))
+    onehot = gsh(F.one_hot(ge, e).to(torch.int32))             # (G, I, E)
     pos_in_e = torch.cumsum(onehot, dim=1, dtype=torch.int32) - onehot
     pos = torch.gather(pos_in_e, 2, ge[..., None])[..., 0]     # (G, I)
     keep = pos < cap
@@ -97,13 +103,20 @@ def apply_moe(cfg, p, x, capacity_factor: float = 1.25, groups: int = 1):
     # scatter-add into zeros (the drop bin is discarded)
     items_in = xg.repeat_interleave(k, dim=1)                  # (G, I, d)
     g_idx = torch.arange(g, device=x.device)[:, None].expand(g, i_items)
-    buf = torch.zeros((g, e * cap + 1, d), dtype=xt.dtype, device=x.device)
-    buf.index_put_((g_idx, slot), items_in)
+    buf = gsh(torch.zeros((g, e * cap + 1, d), dtype=xt.dtype,
+                          device=x.device))
+    buf = gsh(buf.index_put_((g_idx, slot), items_in))
 
     # (G, E, C, d) -> (E, G*C, d)
     xe = buf[:, :-1].reshape(g, e, cap, d).transpose(0, 1)
-    ye = _expert_ffn(cfg, p, xe.reshape(e, g * cap, d))
-    ye = ye.reshape(e, g, cap, d).transpose(0, 1).reshape(g, e * cap, d)
+    xe = xe.reshape(e, g * cap, d)
+    if ep_sharder is not None:
+        xe = ep_sharder(xe)
+    ye = _expert_ffn(cfg, p, xe)
+    if ep_sharder is not None:
+        ye = ep_sharder(ye)
+    ye = gsh(ye.reshape(e, g, cap, d).transpose(0, 1).reshape(
+        g, e * cap, d))
     ye = torch.cat([ye, ye.new_zeros((g, 1, d))], dim=1)
 
     # combine: gather back per group, weighted by gates, the k slots of
@@ -111,10 +124,10 @@ def apply_moe(cfg, p, x, capacity_factor: float = 1.25, groups: int = 1):
     out_items = torch.gather(ye, 1, slot[..., None].expand(g, i_items, d))
     out_items = (out_items * gg[..., None].to(ye.dtype)).reshape(
         g, tl, k, d)
-    out = torch.zeros((g, tl, d), dtype=ye.dtype, device=x.device)
+    out = gsh(torch.zeros((g, tl, d), dtype=ye.dtype, device=x.device))
     for j in range(k):
         out = out + out_items[:, :, j]
-    out = out.reshape(t, d)
+    out = gsh(out).reshape(t, d)
 
     if cfg.num_shared_experts:
         sp = {"w_up": p["shared_up"], "w_down": p["shared_down"]}

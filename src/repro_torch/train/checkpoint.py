@@ -21,8 +21,10 @@ What differs, and why:
 * a bfloat16 leaf is stored as its ``uint16`` view with ``bfloat16`` in
   the manifest (numpy has no bfloat16 without ``ml_dtypes``); the
   reference's bfloat16 leaves (``|V2`` on disk) restore the same way;
-* the sharded placement of ``restore(shardings=)`` waits for the
-  parallel slice.
+* ``restore(shardings=)`` takes a tree of
+  ``repro_torch.parallel.sharding.Placement``s, any mesh, and returns
+  each placed leaf as its list of per-device blocks (``shard_tensor``),
+  where the reference ``device_put``s it into one sharded array.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.parallel.sharding import shard_tensor
+
 
 def _flatten(tree, prefix=()):
     if isinstance(tree, nn.Module):
@@ -52,27 +56,35 @@ def _flatten(tree, prefix=()):
         yield prefix, tree
 
 
-def _unflatten_into(skeleton, flat: dict, bf16: set, path=()):
+def _unflatten_into(skeleton, flat: dict, bf16: set, path=(),
+                    placements=None):
     if isinstance(skeleton, nn.Module):
-        for name, t in skeleton.state_dict(keep_vars=True).items():
-            _unflatten_into(t, flat, bf16, path + (name,))
-        return skeleton
+        out = {name: _unflatten_into(t, flat, bf16, path + (name,),
+                                     placements)
+               for name, t in skeleton.state_dict(keep_vars=True).items()}
+        # restored in place, unless a placement cut a leaf into blocks
+        placed = any(isinstance(v, list) for v in out.values())
+        return out if placed else skeleton
     if isinstance(skeleton, dict):
-        return {k: _unflatten_into(v, flat, bf16, path + (str(k),))
+        return {k: _unflatten_into(v, flat, bf16, path + (str(k),),
+                                   placements)
                 for k, v in skeleton.items()}
     if isinstance(skeleton, (list, tuple)):
         return type(skeleton)(
-            _unflatten_into(v, flat, bf16, path + (str(i),))
+            _unflatten_into(v, flat, bf16, path + (str(i),), placements)
             for i, v in enumerate(skeleton))
     key = "/".join(path)
     arr = flat[key]
-    if not torch.is_tensor(skeleton):
-        return arr
-    if tuple(arr.shape) != tuple(skeleton.shape):
+    if torch.is_tensor(skeleton) and tuple(arr.shape) != tuple(
+            skeleton.shape):
         raise ValueError(f"{key}: saved shape {arr.shape}, skeleton shape "
                          f"{tuple(skeleton.shape)}")
     t = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
          if key in bf16 else torch.from_numpy(arr))
+    if placements is not None and key in placements:
+        return shard_tensor(t, placements[key])
+    if not torch.is_tensor(skeleton):
+        return arr
     with torch.no_grad():
         skeleton.copy_(t)
     return skeleton
@@ -155,11 +167,17 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, skeleton, step: int | None = None):
+    def restore(self, skeleton, step: int | None = None, shardings=None):
         """Restore into the structure of ``skeleton`` -> (state, step):
         tensor leaves (a module's included) are overwritten in place and
         returned, other leaves come back as numpy arrays (a bfloat16 one
-        as its ``uint16`` view)."""
+        as its ``uint16`` view).  ``shardings``, a tree of ``Placement``s
+        shaped as ``skeleton`` (a module as a dict of its ``state_dict``
+        names), places each leaf it names: that leaf comes back as its
+        blocks (``shard_tensor``), each on its logical device's device,
+        whatever the skeleton's leaf is (a ``meta`` tensor of the
+        abstract state, say); a module with a placed leaf comes back as
+        that dict."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -172,7 +190,10 @@ class CheckpointManager:
             if info["dtype"] == "bfloat16":
                 flat[key] = flat[key].view(np.uint16)
                 bf16.add(key)
-        return _unflatten_into(skeleton, flat, bf16), step
+        placements = None if shardings is None else {
+            "/".join(path): p for path, p in _flatten(shardings)}
+        return _unflatten_into(skeleton, flat, bf16,
+                               placements=placements), step
 
     def wait(self):
         self._pool.shutdown(wait=True)

@@ -131,6 +131,7 @@ def test_train_launcher_on_cpu(tmp_path):
                        r"\S+; [\d.]+ ms, \d+ tokens/s; peak memory not "
                        r"measured \(cpu\)$", out.stdout, re.MULTILINE)
     assert [int(s) for s, _ in steps] == [0, 1, 2]
+    assert "mesh {'data': 1, 'model': 1}" in out.stdout
     assert "3 steps in" in out.stdout
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         "step_0000000002", "step_0000000003"]
@@ -141,6 +142,21 @@ def test_train_launcher_on_cpu(tmp_path):
     assert again.returncode == 0, again.stderr[-2000:]
     assert "resumed from step 3" in again.stdout
     assert "step 3: loss" in again.stdout
+
+
+def test_train_launcher_refuses_the_multi_pod_mesh_on_cpu(tmp_path):
+    """``--multi-pod`` asks for the (2, 16, 16) production mesh: the
+    launcher prints it and refuses with one device, as ``repro`` cannot
+    build it on fewer than 512 either."""
+    out = run_example(TRAIN_LAUNCHER, "--arch", "qwen2-0.5b", "--reduced",
+                      "--device", "cpu", "--steps", "1", "--batch", "2",
+                      "--seq", "16", "--ckpt-dir", str(tmp_path),
+                      "--multi-pod")
+    assert out.returncode != 0
+    assert "mesh {'pod': 2, 'data': 16, 'model': 16} (512 devices)" in \
+        out.stdout
+    assert "the production mesh needs 512 devices; 1 present" in out.stderr
+    assert not any(tmp_path.iterdir())
 
 
 @pytest.mark.parametrize("name", SCRIPTS + (LAUNCHER, TRAIN_LAUNCHER))

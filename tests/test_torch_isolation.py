@@ -41,7 +41,12 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.train, repro_torch.train.optimizer, "
             "repro_torch.train.train_loop, repro_torch.train.checkpoint, "
             "repro_torch.train.fault, repro_torch.data, "
-            "repro_torch.data.pipeline, repro_torch.launch.train\n"
+            "repro_torch.data.pipeline, repro_torch.launch.train, "
+            "repro_torch.launch.mesh, repro_torch.parallel, "
+            "repro_torch.parallel.sharding, repro_torch.parallel.inputs, "
+            "repro_torch.parallel.collectives, "
+            "repro_torch.parallel.compression, "
+            "repro_torch.parallel.pipeline, repro_torch.models.moe_shard\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
             "'repro') or m.startswith(('jax.', 'jaxlib.', 'repro.')))\n"
             "print(bad)\n")
@@ -75,7 +80,10 @@ def test_port_sources_exist():
                 "train/__init__.py", "train/optimizer.py",
                 "train/train_loop.py", "train/checkpoint.py",
                 "train/fault.py", "data/__init__.py", "data/pipeline.py",
-                "launch/train.py"):
+                "launch/train.py", "launch/mesh.py", "models/moe_shard.py",
+                "parallel/__init__.py", "parallel/sharding.py",
+                "parallel/inputs.py", "parallel/collectives.py",
+                "parallel/compression.py", "parallel/pipeline.py"):
         assert f"repro_torch/{mod}" in names, mod
 
 

@@ -39,6 +39,14 @@ reduced qwen2, granite-moe and recurrentgemma configs, card against CPU
 correlation ≥ 0.9998 and ≥ 0.999, as measured); remat equal to no remat and a checkpoint resumed
 to the same third step, both bit for bit under
 ``torch.use_deterministic_algorithms``.
+
+The parallel layer over 4 logical devices (streams on the card) against
+the same over 4 CPU devices: the sharded MoE of reduced granite on
+(2, 2) and (1, 4) at capacity 16 and 1.25 in float32 (equal
+``expert_load`` and ``dropped_tokens``, outputs and gradients within
+1e-4 of their largest magnitude), ``pipeline_apply`` over 4 stages and
+its gradient (1e-5), and ``quantized_tree_psum`` at 8 and 16 bits bit
+for bit.
 """
 
 import dataclasses
@@ -249,9 +257,13 @@ def train_batch_on(cfg, device, rows=B, seed=0) -> dict:
 
 
 def one_step(cfg, params, batch, remat=False, grad_accum=1):
+    from repro_torch.configs.base import ShapeSpec
     from repro_torch.train import build_train_step, init_state
-    step = build_train_step(cfg, None, q_chunk=Q_CHUNK, remat=remat,
-                            grad_accum=grad_accum)
+    rows, seq = batch["tokens"].shape
+    step, _, _ = build_train_step(cfg, None, ShapeSpec("t", "train", seq,
+                                                       rows),
+                                  q_chunk=Q_CHUNK, remat=remat,
+                                  grad_accum=grad_accum)
     return step(params, init_state(params), batch)
 
 
@@ -316,12 +328,16 @@ def test_checkpoint_resumes_to_the_same_step(cuda, tmp_path):
     """Two steps, a checkpoint, a third step; then the checkpoint restored
     into the live model and state and the third step again: the same
     parameters, moments and metrics, bit for bit."""
+    from repro_torch.configs.base import ShapeSpec
     from repro_torch.train import (CheckpointManager, build_train_step,
                                    init_state)
     cfg = config("qwen2-0.5b")
     m = model.make_params(cfg, seed=0, device=cuda, trainable=True)
-    step = build_train_step(cfg, None, q_chunk=Q_CHUNK, remat=True)
     batches = [train_batch_on(cfg, cuda, seed=s) for s in range(3)]
+    rows, seq = batches[0]["tokens"].shape
+    step, _, _ = build_train_step(
+        cfg, None, ShapeSpec("t", "train", seq, rows), q_chunk=Q_CHUNK,
+        remat=True)
     mgr = CheckpointManager(tmp_path)
 
     def run():
@@ -340,3 +356,92 @@ def test_checkpoint_resumes_to_the_same_step(cuda, tmp_path):
     assert all(torch.equal(a, b) for a, b in zip(pa, pb))
     assert all(torch.equal(mua[k], mub[k]) for k in mua)
     assert all(float(meta[k]) == float(metb[k]) for k in meta)
+
+
+# ------------------------------------------------------- parallel layer
+
+def logical_mesh(shape, axes, device):
+    from repro_torch.launch.mesh import make_host_mesh
+    return make_host_mesh(shape, axes, device=device)
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4)], ids=["2x2", "1x4"])
+@pytest.mark.parametrize("cf", [16.0, 1.25])
+def test_sharded_moe_on_the_card_matches_the_cpu(cuda, shape, cf):
+    """``make_sharded_moe`` over 4 logical devices (streams on the card)
+    against the same over 4 CPU devices, in float32: equal
+    ``expert_load`` and ``dropped_tokens``; outputs and the gradients of
+    Σy² within 1e-4 of their largest magnitude."""
+    from repro_torch.models.moe_shard import make_sharded_moe
+    from repro_torch.parallel.sharding import spec_for_axes
+    cfg = get_config("granite-moe-3b-a800m").reduced()
+    tree = model.make_params(cfg, seed=0, device="cpu").layers[0]["moe"]
+    x = torch.as_tensor(np.random.default_rng(1).normal(
+        size=(2, 16, cfg.d_model)), dtype=torch.float32)
+    out = {}
+    for where in ("cpu", cuda):
+        mesh = logical_mesh(shape, ("data", "model"), where)
+        fn = make_sharded_moe(cfg, mesh, "data", {
+            k: spec_for_axes(d.axes, d.shape, mesh)
+            for k, d in moe.moe_schema(cfg).items()}, capacity_factor=cf)
+        p = {k: tree[k].detach().to(where).requires_grad_()
+             for k in tree.inits}
+        y, m = fn(p, x.to(where))
+        grads = torch.autograd.grad(torch.sum(y ** 2), list(p.values()))
+        out[str(where)] = (y.detach().cpu(), {k: v.detach().cpu()
+                                              for k, v in m.items()},
+                           [g.cpu() for g in grads])
+    (y0, m0, g0), (y1, m1, g1) = out["cpu"], out[str(cuda)]
+    for key in ("expert_load", "dropped_tokens"):
+        assert torch.equal(m0[key], m1[key]), key
+    assert cf != 16.0 or int(m0["dropped_tokens"]) == 0
+    for got, want in zip([y1] + g1, [y0] + g0):
+        assert float((got - want).abs().max()) <= 1e-4 * float(
+            want.abs().max())
+
+
+def test_pipeline_on_the_card_matches_the_cpu(cuda):
+    """``pipeline_apply`` over 4 stages on 4 logical devices of the card
+    against the CPU, outputs and the gradient of Σy² through it within
+    1e-5 of their largest magnitude (float32, TF32 off)."""
+    from repro_torch.parallel.pipeline import pipeline_apply, split_stages
+    rng = np.random.default_rng(0)
+    layers = [{"w": torch.as_tensor(rng.normal(size=(16, 16)) * 0.3,
+                                    dtype=torch.float32)} for _ in range(8)]
+    mbs = torch.as_tensor(rng.normal(size=(6, 3, 16)), dtype=torch.float32)
+
+    def stage(p, x):
+        for l in range(p["w"].shape[0]):
+            x = torch.tanh(x @ p["w"][l])
+        return x
+    out = {}
+    for where in ("cpu", cuda):
+        w = split_stages(layers, 4)["w"].to(where).requires_grad_()
+        y = pipeline_apply(stage, logical_mesh((4,), ("pod",), where))(
+            {"w": w}, mbs.to(where))
+        (g,) = torch.autograd.grad(torch.sum(y ** 2), [w])
+        out[str(where)] = (y.detach().cpu(), g.cpu())
+    for got, want in zip(out[str(cuda)], out["cpu"]):
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+def test_quantized_psum_on_the_card_equals_the_cpu(cuda, bits):
+    """The quantized all-reduce over 4 logical devices: reduced values
+    and residuals bit for bit (the same integer sums, scales and float32
+    operations)."""
+    from repro_torch.parallel.compression import quantized_tree_psum
+    rng = np.random.default_rng(2)
+    trees = [{"a": torch.as_tensor(rng.normal(size=(33, 7)),
+                                   dtype=torch.float32)} for _ in range(4)]
+    out = {}
+    for where in ("cpu", cuda):
+        red, res = quantized_tree_psum(
+            [{k: v.to(where) for k, v in t.items()} for t in trees],
+            logical_mesh((4,), ("data",), where), "data", bits=bits)
+        out[str(where)] = ([r["a"].cpu() for r in red],
+                           [r["a"].cpu() for r in res])
+    for got, want in zip(out[str(cuda)], out["cpu"]):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)

@@ -82,6 +82,29 @@ def test_rehearsal_runs_every_phase_and_reports_nothing():
                   "lm train hold (d) qwen2-0.5b 2 layers",
                   "lm train hold (e) examples/train_lm_torch.py",
                   "phase LM training done",
+                  "lm parallel placements qwen2-0.5b Mesh({'data': 16, "
+                  "'model': 16}, abstract): params",
+                  "lm parallel placements xlstm-1.3b Mesh({'pod': 2, "
+                  "'data': 16, 'model': 16}, abstract): params",
+                  "lm parallel part (a) placements:",
+                  "lm parallel (b) granite-moe-3b-a800m MoE layer f32, 2 x "
+                  "16 tokens after layer 0's attention, mesh Mesh({'data': "
+                  "1, 'model': 4})",
+                  "Mesh({'data': 2, 'model': 2}) (EP all_to_all over model,"
+                  " FSDP gather over data 2-way)",
+                  "lm parallel (b) granite-moe-3b-a800m full-depth prefill",
+                  "lm parallel part (b) sharded MoE:",
+                  "lm parallel (c) train step moe_impl=shard_map",
+                  "lm parallel part (c) shard_map train step:",
+                  "lm parallel (d) pipeline qwen2-0.5b",
+                  "outputs equal to the sequential run_stack bit for bit",
+                  "lm parallel part (d) pipeline:",
+                  "lm parallel (e) quantized_tree_psum 8 bits",
+                  "lm parallel (e) quantized_tree_psum 16 bits",
+                  "every shard's reduced values equal to the cpu path's bit "
+                  "for bit",
+                  "lm parallel part (e) quantized all-reduce:",
+                  "phase LM parallel done",
                   "rehearsal complete"):
         assert phase in out.stdout, phase
     assert '"ok"' not in out.stdout

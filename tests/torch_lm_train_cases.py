@@ -18,6 +18,7 @@ import torch
 from repro.configs import get_config as ref_get_config
 from repro.models import model as ref_model
 from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeSpec
 from repro.configs.base import ShapeSpec as RefShapeSpec
 from repro.train import optimizer as ref_opt
 from repro.train import train_loop as ref_train_loop
@@ -254,9 +255,10 @@ def ref_steps(arch: str, grad_accum: int):
 
 def port_step(arch, grad_accum, remat, model, opt_state, seed):
     ref_cfg, cfg = configs(arch)
-    step = train_loop.build_train_step(
-        cfg, None, opt_cfgs()[1], q_chunk=Q_CHUNK, rec_chunk=REC_CHUNK,
-        remat=remat, grad_accum=grad_accum)
+    step, _, _ = train_loop.build_train_step(
+        cfg, None, ShapeSpec("t", "train", S, B), opt_cfgs()[1],
+        q_chunk=Q_CHUNK, rec_chunk=REC_CHUNK, remat=remat,
+        grad_accum=grad_accum)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     model, opt_state, metrics = step(model, opt_state,
                                      torch_batch(train_batch(ref_cfg, seed)))
