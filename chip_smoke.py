@@ -142,7 +142,19 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
     from 4 micro-batches over 4 ``data`` shards at 8 and 16 bits, every
     shard's reduced values bit for bit to the CPU's ``quantized_psum``,
     each leaf's error within n · scale / (2 · qmax), residuals + reduced
-    to the gradients' sum; each part's seconds and peak memory.
+    to the gradients' sum; each part's seconds and peak memory;
+15. runs the analysis layer on the host (``meta`` traces, six records at
+    once in spawned worker processes; nothing allocated on the card):
+    ``run_cell`` of qwen2-0.5b's train_4k, prefill_32k and decode_32k and
+    granite-moe-3b-a800m's train_4k at (16, 16), each record's memory,
+    FLOPs and modelled collectives and its roofline row, the table; then
+    one-card records of step 13's training cell and step 11's decode
+    cell: the parameter + optimizer bytes held exactly to the trained
+    state's, the predicted memory, FLOPs and roofline step printed beside
+    the training phase's peak memory, model FLOPs and median step, and
+    the decode roofline term beside the serving phase's bound and
+    measured step, with the card's name and power limit; the phase is
+    held under 60 s.
 
 Any mismatch raises, so the exit code is non-zero.  The line before the
 last is the per-kernel JSON record; the last line is
@@ -274,11 +286,7 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
 def header(device) -> None:
     import torch
     if device.type == "cuda":
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout.strip()
-        log(smi)           # the card's name and power limit, verbatim
+        log(card_label(device))  # the card's name and power limit
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
@@ -2539,7 +2547,7 @@ def lm_serving_phase(device, rehearse: bool) -> dict:
                prefill_tok_s=b * p / timing["prefill_ms"] * 1e3,
                decode_tok_s=b / step_ms * 1e3, bound_ms=bound,
                launches_per_step=per_step, idle=traced["idle"],
-               params=n_params)
+               params=n_params, cfg=cfg, batch=b, cache_slots=cap)
     log(f"lm {cfg.name} serve: batch {b}, prompt {p}, {new} new tokens, "
         f"3 requests (2 greedy, 1 at temperature 0.8 seed 1): prefill "
         f"{timing['prefill_ms']:.4f} ms ({out['prefill_tok_s']:.1f} "
@@ -2967,8 +2975,8 @@ def lm_training_phase(device, rehearse: bool) -> dict:
         cfg, device, run["steps"], run["ckpt_every"], run["fail_at"], rows,
         seq, accum, run["q_chunk"], ckpt_dir, on_step)
     train_s = time.perf_counter() - t0
-    peak = (f"{torch.cuda.max_memory_allocated()} bytes" if on_card
-            else "not measured (cpu)")
+    peak_b = torch.cuda.max_memory_allocated() if on_card else None
+    peak = f"{peak_b} bytes" if on_card else "not measured (cpu)"
     # (a) every loss and gradient norm finite
     losses = [h["loss"] for h in hist]
     require(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
@@ -3008,10 +3016,15 @@ def lm_training_phase(device, rehearse: bool) -> dict:
         + "; ".join(f"{name[:70]} {ms:.3f} ({n})"
                     for name, (ms, n) in traced["top"])
         + f"; phase at {time.perf_counter() - t_phase:.3f} s")
+    state_bytes = sum(t.numel() * t.element_size() for t in [
+        *state["params"].parameters(), *state["opt"]["mu"].values(),
+        *state["opt"]["nu"].values(), state["opt"]["step"]])
     out = dict(step_ms=step_s * 1e3, tokens_per_s=tokens / step_s, mfu=mfu,
                peak_bytes=peak, launches=traced["kernels"],
                idle=traced["idle"], idle_untraced=idle_untraced,
-               losses=losses)
+               losses=losses, cfg=cfg, seq=seq, batch=rows * accum,
+               grad_accum=accum, q_chunk=run["q_chunk"], flops=flops,
+               state_bytes=state_bytes, peak=peak_b)
     del state, step_fn
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -3682,6 +3695,191 @@ def lm_parallel_phase(device, rehearse: bool) -> None:
             f"{time.perf_counter() - t_phase:.3f} s")
 
 
+#: the LM dry-run phase: ``run_cell`` at (16, 16) for these cells, and
+#: their toy sizes under ``--rehearse`` (reduced configs; positions,
+#: global batch)
+LM_DRYRUN = (("qwen2-0.5b", "train_4k"), ("qwen2-0.5b", "prefill_32k"),
+             ("qwen2-0.5b", "decode_32k"), ("granite-moe-3b-a800m",
+                                            "train_4k"))
+LM_DRYRUN_TOY = (64, 64)
+
+
+def card_label(device) -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    if device.type != "cuda":
+        return "cpu (rehearsal: no card)"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+
+
+def lm_dryrun_line(label: str, rec: dict) -> str:
+    mem, coll = rec["memory"], rec["collectives"]
+    return (f"lm dry run {label}: {rec['params']} parameters "
+            f"({rec['active_params']} active), args/dev "
+            f"{mem['argument_bytes']} B, temp/dev {mem['temp_bytes']} B, "
+            f"output/dev {mem['output_bytes']} B; FLOPs "
+            f"{rec['cost_corrected']['flops']:.6e} global (per-device trace"
+            f" {rec['cost_raw']['flops']:.6e}); collective bytes/dev by "
+            f"kind {coll['bytes_by_kind']} (total {coll['total_bytes']}, "
+            f"{coll['total_count']} ops); traced in "
+            f"{rec['compile_seconds']} s + {rec['lower_seconds_cost']} s")
+
+
+def lm_dryrun_job(job: tuple) -> dict:
+    """One dry-run record, in a worker process of the dry-run phase:
+    ``("run_cell", arch, shape name)`` at (16, 16), or ``("record", cfg,
+    shape, mesh shape, overrides)`` for any config and shape (the
+    rehearsal's toy cells, the one-card calibration cells); a one-card
+    train record also carries ``state_bytes``, the parameter + optimizer
+    bytes of its arguments."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    if job[0] == "run_cell":
+        rec = dryrun.run_cell(job[1], job[2], False)
+    else:
+        _, cfg, shape, mesh_shape, overrides = job
+        mesh = Mesh(mesh_shape, ("data", "model"))
+        rec = {"arch": cfg.name, "shape": shape.name, "kind": shape.kind,
+               "mesh": "x".join(map(str, mesh_shape)),
+               "devices": mesh.size, "variant": "baseline",
+               "params": dryrun.count_params(cfg),
+               "active_params": dryrun.count_params(cfg, active_only=True)}
+        dryrun._cell_record(cfg, shape, mesh, rec, overrides=overrides)
+        if shape.kind == "train" and mesh.size == 1:
+            parts = dryrun._train_parts(
+                cfg, shape, mesh, grad_accum=overrides["grad_accum"])
+            rec["state_bytes"] = parts["params"] + parts["opt"]
+    rec["status"] = "ok"
+    rec["wall_seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def lm_dryrun_phase(device, rehearse: bool, served: dict,
+                    trained: dict) -> None:
+    """The analysis layer on the host (``meta`` traces; nothing is
+    allocated on the card), its six records traced at once in worker
+    processes: (a) ``run_cell`` of qwen2-0.5b's three shapes and
+    granite-moe-3b-a800m's train_4k on (16, 16); (b) their roofline rows
+    and table; (c) one-card records of the training and serving phases'
+    own qwen2-0.5b cells, held and printed against what those phases
+    measured."""
+    import multiprocessing
+    import os
+    from repro_torch.analysis import roofline
+    from repro_torch.configs import SHAPES
+    from repro_torch.configs.base import ShapeSpec
+    t_phase = time.perf_counter()
+    card = card_label(device)
+    cells = []
+    for arch, name in LM_DRYRUN:
+        if rehearse:
+            seq, batch = LM_DRYRUN_TOY
+            shape = ShapeSpec(name, SHAPES[name].kind, seq, batch)
+            cells.append(("record", lm_config(arch, None, True), shape,
+                          (16, 16), None))
+        else:
+            cells.append(("run_cell", arch, name))
+    train_cfg = trained["cfg"]
+    train_shape = ShapeSpec("card_train", "train", trained["seq"],
+                            trained["batch"])
+    decode_cfg = served["cfg"]
+    decode_shape = ShapeSpec("card_decode", "decode",
+                             served["cache_slots"], served["batch"])
+    jobs = cells + [
+        ("record", train_cfg, train_shape, (1, 1),
+         {"grad_accum": trained["grad_accum"],
+          "q_chunk": trained["q_chunk"]}),
+        ("record", decode_cfg, decode_shape, (1, 1), None)]
+    spawn = multiprocessing.get_context("spawn")
+    with spawn.Pool(min(len(jobs), os.cpu_count() or 1)) as pool:
+        recs = pool.map(lm_dryrun_job, jobs, chunksize=1)
+    log(f"lm dry run: {len(jobs)} records traced in "
+        f"{min(len(jobs), os.cpu_count() or 1)} worker processes in "
+        f"{time.perf_counter() - t_phase:.3f} s")
+
+    rows = []
+    for (arch, name), rec in zip(LM_DRYRUN, recs):
+        cfg = lm_config(arch, None, rehearse)
+        shape = (ShapeSpec(name, SHAPES[name].kind, *LM_DRYRUN_TOY)
+                 if rehearse else SHAPES[name])
+        rows.append(roofline._analyze(rec, cfg, shape))
+        log(lm_dryrun_line(f"{arch} {name} 16x16", rec)
+            + f"; {rec['wall_seconds']:.3f} s in its worker")
+    for row in rows:
+        log(f"lm dry run roofline {row.arch} {row.shape}: compute "
+            f"{row.compute_s:.6e} s, memory {row.memory_s:.6e} s, "
+            f"collective {row.collective_s:.6e} s -> {row.dominant}; "
+            f"MF/HLO {row.useful_ratio:.4f}, roofline frac "
+            f"{row.roofline_frac:.4f}, fits {row.fits} (data sheet: "
+            f"{roofline.PEAK_FLOPS:.3e} FLOP/s, {roofline.HBM_BW:.3e} B/s, "
+            f"links {roofline.IB_BW:.3e} B/s across nodes)")
+    log("lm dry run roofline table (16x16):\n"
+        + roofline.markdown_table(rows))
+
+    # (c) one card: the training phase's cell
+    rec = recs[len(cells)]
+    state = rec["state_bytes"]
+    require(state == trained["state_bytes"], f"lm dry run: parameter + "
+            f"optimizer bytes {state} != the training phase's state "
+            f"{trained['state_bytes']}")
+    mem = rec["memory"]
+    predicted = mem["argument_bytes"] + mem["temp_bytes"] + \
+        mem["output_bytes"]
+    row = roofline._analyze(rec, train_cfg, train_shape)
+    flops = rec["cost_corrected"]["flops"]
+    measured_s = trained["step_ms"] / 1e3
+    on_card = device.type == "cuda"
+    peak = trained["peak"]
+    log(f"lm dry run calibration train {train_cfg.name} "
+        f"{train_shape.global_batch} x {train_shape.seq_len} (grad_accum "
+        f"{trained['grad_accum']}, remat) on one card [{card}]: parameter "
+        f"+ optimizer bytes {state} = the training phase's state, exactly; "
+        f"predicted args + temp + output {predicted} B (args "
+        f"{mem['argument_bytes']}, temp {mem['temp_bytes']}) vs "
+        f"torch.cuda.max_memory_allocated "
+        + (f"{peak} B (predicted / measured {predicted / peak:.4f})"
+           if peak else "not measured (cpu)")
+        + f"; FLOPs {flops:.6e} (remat off; x4/3 {flops * 4 / 3:.6e}) vs "
+        f"lm_train_flops {trained['flops']:.6e} (ratio "
+        f"{flops / trained['flops']:.4f}); roofline step "
+        f"{row.step_time_s:.6e} s ({row.dominant}; compute "
+        f"{row.compute_s:.6e}, memory {row.memory_s:.6e}) vs measured "
+        f"median step {measured_s:.6e} s: "
+        + (f"measured / roofline {measured_s / row.step_time_s:.4f}, share "
+           f"of the roofline {row.step_time_s / measured_s:.4f}"
+           if on_card else "ratio not measured (cpu)")
+        + f"; {rec['wall_seconds']:.3f} s in its worker")
+
+    # (c) one card: the serving phase's decode cell
+    rec = recs[len(cells) + 1]
+    row = roofline._analyze(rec, decode_cfg, decode_shape)
+    hbm = roofline._hbm_bytes(decode_cfg, decode_shape)
+    step_ms = served["decode_step_ms"]
+    log(f"lm dry run calibration decode {decode_cfg.name} batch "
+        f"{decode_shape.global_batch}, {decode_shape.seq_len}-slot cache on "
+        f"one card [{card}]: roofline memory term {row.memory_s * 1e3:.4f} "
+        f"ms ({hbm:.6e} B analytic / {roofline.HBM_BW:.3e} B/s) vs the "
+        f"serving phase's decode bound {served['bound_ms']:.4f} ms and "
+        f"measured "
+        + (f"{step_ms:.4f} ms/step (measured / roofline "
+           f"{step_ms / (row.step_time_s * 1e3):.2f})" if on_card else
+           "not measured (cpu)")
+        + f"; args {rec['memory']['argument_bytes']} B, temp "
+        f"{rec['memory']['temp_bytes']} B, FLOPs "
+        f"{rec['cost_corrected']['flops']:.6e}; {rec['wall_seconds']:.3f} s "
+        f"in its worker")
+    elapsed = time.perf_counter() - t_phase
+    log(f"lm dry run phase: {elapsed:.3f} s on the host, nothing allocated "
+        f"on the card")
+    if not rehearse:
+        require(elapsed < 60.0, f"lm dry run phase took {elapsed:.3f} s")
+
+
 def phase_done(name: str, t_start: float) -> None:
     log(f"phase {name} done at {time.perf_counter() - t_start:.3f} s")
 
@@ -3822,14 +4020,16 @@ def main(argv=None) -> int:
     records[2]["launches"] = counts["tricode_histogram"]
 
     # LM serving: no hand-written kernel on this path (plain torch)
-    lm_serving_phase(device, args.rehearse)
+    served = lm_serving_phase(device, args.rehearse)
     phase_done("LM serving", t_start)
     lm_recurrent_phase(device, args.rehearse)
     phase_done("LM recurrent serving", t_start)
-    lm_training_phase(device, args.rehearse)
+    trained = lm_training_phase(device, args.rehearse)
     phase_done("LM training", t_start)
     lm_parallel_phase(device, args.rehearse)
     phase_done("LM parallel", t_start)
+    lm_dryrun_phase(device, args.rehearse, served, trained)
+    phase_done("LM dry run", t_start)
 
     log(f"chip_smoke elapsed {time.perf_counter() - t_start:.3f} s")
     if args.rehearse:

@@ -46,7 +46,10 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.parallel.sharding, repro_torch.parallel.inputs, "
             "repro_torch.parallel.collectives, "
             "repro_torch.parallel.compression, "
-            "repro_torch.parallel.pipeline, repro_torch.models.moe_shard\n"
+            "repro_torch.parallel.pipeline, repro_torch.models.moe_shard, "
+            "repro_torch.analysis.roofline, "
+            "repro_torch.analysis.collectives, repro_torch.launch.dryrun, "
+            "repro_torch.launch.hillclimb\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
             "'repro') or m.startswith(('jax.', 'jaxlib.', 'repro.')))\n"
             "print(bad)\n")
@@ -83,7 +86,9 @@ def test_port_sources_exist():
                 "launch/train.py", "launch/mesh.py", "models/moe_shard.py",
                 "parallel/__init__.py", "parallel/sharding.py",
                 "parallel/inputs.py", "parallel/collectives.py",
-                "parallel/compression.py", "parallel/pipeline.py"):
+                "parallel/compression.py", "parallel/pipeline.py",
+                "analysis/roofline.py", "analysis/collectives.py",
+                "launch/dryrun.py", "launch/hillclimb.py"):
         assert f"repro_torch/{mod}" in names, mod
 
 

@@ -105,6 +105,19 @@ def test_rehearsal_runs_every_phase_and_reports_nothing():
                   "for bit",
                   "lm parallel part (e) quantized all-reduce:",
                   "phase LM parallel done",
+                  "lm dry run: 6 records traced in",
+                  "lm dry run qwen2-0.5b train_4k 16x16: ",
+                  "lm dry run qwen2-0.5b prefill_32k 16x16: ",
+                  "lm dry run qwen2-0.5b decode_32k 16x16: ",
+                  "lm dry run granite-moe-3b-a800m train_4k 16x16: ",
+                  "lm dry run roofline qwen2-0.5b train_4k: compute",
+                  "lm dry run roofline table (16x16):",
+                  "lm dry run calibration train qwen2-0.5b 4 x 32 "
+                  "(grad_accum 2, remat) on one card",
+                  "= the training phase's state, exactly",
+                  "lm dry run calibration decode qwen2-0.5b batch 2",
+                  "lm dry run phase:",
+                  "phase LM dry run done",
                   "rehearsal complete"):
         assert phase in out.stdout, phase
     assert '"ok"' not in out.stdout
