@@ -52,8 +52,11 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    kernel's to the lock-step windows; the first async run traced for
    the device's idle share and for kernels of different streams running
    at once (the kernel phase also times the megastep at 8 shard windows
-   against 8 single launches, and window 0 of the 4 shards on their 4
-   streams against one stream);
+   against 8 single launches, then at K = 1, 2, 4, 8 real rows of a
+   cap-8 buffer and at shard 0's last window, each with a dispatch's
+   time -- the upload of its real rows from pinned memory and the launch
+   -- beside uploading and launching all 8 rows, and window 0 of the 4
+   shards on their 4 streams against one stream);
 7. on the same graph and four logical devices, fault tolerance and the
    sessions of a multi-device engine: a seeded faulty 1D async run
    (producer error, dispatch error, a poisoned dispatch, one lane
@@ -176,6 +179,14 @@ the kernel's measured windows (same card, same call), holding every
 launch to the plain version bit for bit::
 
     python3 chip_smoke.py --ab build/ab/parent-census_fused.cu
+
+``--ab-tree DIR`` (alone, or after ``--ab``'s kernels) times the 1D
+async orient-none cap-8 run of the main graph with the package of
+``DIR/src`` -- another commit's checkout, as ``git archive`` unpacks it
+into a gitignored directory -- against this checkout's, in turns, each
+in a process of its own that builds its package's kernels::
+
+    python3 chip_smoke.py --ab-tree build/ab/parent
 """
 
 from __future__ import annotations
@@ -225,6 +236,12 @@ SPIN_CYCLES = 2_000_000
 #: seed of the citation delta whose first subset window (over the
 #: unedited graph's affected pairs) the kernel phase measures
 SESSION_WINDOW_SEED = 13
+#: the megastep's measured batches: K real rows of a buffer of
+#: BATCH_CAP rows (the async runs' cap)
+BATCH_CAP = 8
+BATCH_KS = (1, 2, 4, 8)
+#: untraced walls of each ``--ab-tree`` turn (one traced run follows)
+AB_RUN_WALLS = 3
 
 
 def require(cond: bool, msg: str) -> None:
@@ -834,23 +851,7 @@ def ab_kernels(target: str, g, hub, part, device, max_items: int,
                             case.idx.numel(), dp.numel(), an.numel(),
                             _keep_mode(case.orient, True)),
                            OUT_WORDS, device, lambda o: (o[:64], o[64:]))))
-        batch, cases, sched = shard_batch_case(part, max_items, device, 8)
-        case = cases[0]
-        calls.append((
-            "census_fused_desc_batch_launch", f"shard0-x{len(cases)}",
-            tuple(t.reshape(-1) for t in
-                  ops.fused_census_desc_partials_batch_ref(
-                      *case.graph, batch, case.idx, *case.iters, "none",
-                      True)),
-            lib_launch("census_fused_desc_batch_launch",
-                       (*case.graph, batch, case.idx, batch.shape[0],
-                        batch.shape[1], sched.desc_shape, sched.num_anchors,
-                        case.idx.numel(), _keep_mode("none", True)),
-                       OUT_WORDS * batch.shape[0], device,
-                       lambda o: (o.reshape(-1, OUT_WORDS)[:, :64]
-                                  .reshape(-1),
-                                  o.reshape(-1, OUT_WORDS)[:, 64:]
-                                  .reshape(-1)))))
+        calls += megastep_ab_calls(part, max_items, device)
         for case in items:
             calls.append((
                 "census_fused_items_launch", case.label,
@@ -881,6 +882,74 @@ def ab_kernels(target: str, g, hub, part, device, max_items: int,
             (pair_codes_blocks(q, k, kc).reshape(-1),),
             lib_launch("pair_codes_launch", (q, k, kc, q.shape[0]),
                        q.numel(), device)))
+    return calls
+
+
+def megastep_ab_calls(part, max_items: int, device) -> list:
+    """The megastep's timed calls for ``--ab``: the first K = 1, 2, 4, 8
+    windows of shard 0 in a cap-8 buffer and shard 0's last window, each
+    launched on its real rows (``shard0-k<K>``, ``shard0-last``); the
+    K < 8 buffers also launched on all 8 rows, their zero rows included
+    (``-cap8``: the launch before the megastep took a real count); and
+    dispatches, each an upload from pinned memory then the launch, of the
+    real rows (``dispatch-k<K>-real``) and of every row
+    (``dispatch-k<K>-cap8``)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.census_fused import OUT_WORDS, _keep_mode
+    batch, cases, sched = shard_batch_case(part, max_items, device,
+                                           BATCH_CAP)
+    case = cases[0]
+    steps = sched.steps_for(0)
+    last = torch.from_numpy(sched.descriptors(0, steps - 1).device_words()
+                            ).to(device)
+    ref_args = (*case.iters, "none", True)
+
+    def split(o):
+        o = o.reshape(-1, OUT_WORDS)
+        return o[:, :64].reshape(-1), o[:, 64:].reshape(-1)
+
+    def call(buf, rows, host=None):
+        """``run(lib)``: (an upload of the first ``rows`` rows of ``host``
+        into ``buf``, then) one launch on ``buf``'s first ``rows`` rows."""
+        run = lib_launch("census_fused_desc_batch_launch",
+                         (*case.graph, buf, case.idx, rows, buf.shape[1],
+                          sched.desc_shape, sched.num_anchors,
+                          case.idx.numel(), _keep_mode("none", True)),
+                         OUT_WORDS * rows, device, split)
+        if host is None:
+            return run
+
+        def dispatch(lib):
+            buf[:rows].copy_(host[:rows], non_blocking=True)
+            return run(lib)
+        return dispatch
+
+    calls = []
+    for k in (*BATCH_KS, "last"):
+        rows = last[None] if k == "last" else batch[:k]
+        real = rows.shape[0]
+        buf = torch.zeros_like(batch)
+        buf[:real] = rows
+        want = ops.fused_census_desc_partials_batch_ref(
+            *case.graph, buf, case.idx, *ref_args)
+        label = f"shard0-{k}" if k == "last" else f"shard0-k{k}"
+        flat = [tuple(t[:n].reshape(-1) for t in want)
+                for n in (real, buf.shape[0])]
+        calls.append(("census_fused_desc_batch_launch", label, flat[0],
+                      call(buf, real)))
+        if k == "last":
+            continue
+        if real < buf.shape[0]:
+            calls.append(("census_fused_desc_batch_launch", f"{label}-cap8",
+                          flat[1], call(buf, buf.shape[0])))
+        host = buf.cpu().pin_memory()
+        calls.append(("census_fused_desc_batch_launch",
+                      f"dispatch-k{k}-real", flat[0],
+                      call(torch.empty_like(buf), real, host)))
+        calls.append(("census_fused_desc_batch_launch",
+                      f"dispatch-k{k}-cap8", flat[1],
+                      call(torch.empty_like(buf), buf.shape[0], host)))
     return calls
 
 
@@ -1267,16 +1336,79 @@ def shard_batch_case(part, max_items: int, device, cap: int):
     return batch, cases, sched
 
 
+def row_work(case: DescCase, want) -> dict:
+    """One megastep row's share of a batch's bound: its valid count,
+    the words it must read of its own (num_valid, the anchors and the
+    descriptors its valid lanes use), its int32 operations and its
+    pairs (whose graph words the batch reads once)."""
+    import torch
+    work = desc_work(case, want)
+    pair, _, _, valid = work["items"]
+    an = case.window[4]
+    a = (case.idx // 16).clamp(0, an.shape[0] - 1)
+    pairs = torch.unique(pair[valid])
+    return dict(valid=int(case.window[0][0]), ops=work["bound_ops"],
+                pairs=pairs,
+                words=(1 + torch.unique(a[valid]).numel()
+                       + 3 * pairs.numel()))
+
+
+def batch_bound(graph, idx, works) -> tuple:
+    """The bound of a batch of rows: the index array once, each row's own
+    words, the graph words of the union of the rows' pairs and 67 output
+    words a row; their operations.  Returns (ms, by, bytes)."""
+    import torch
+    indptr, _, pair_u, pair_v, _ = graph
+    union = torch.unique(torch.cat([w["pairs"] for w in works]))
+    nwords = (idx.numel() + sum(w["words"] for w in works)
+              + graph_words_read(indptr, pair_u, pair_v, union)
+              + 67 * len(works))
+    b, by = bound_ms(4 * nwords, sum(w["ops"] for w in works))
+    return b, by, 4 * nwords
+
+
+def ptxas_usage(build_log: Path) -> dict:
+    """Registers and static shared bytes of each census desc kernel, from
+    ptxas' lines in a build log: the megastep, and the single-window
+    kernel's main-path instance."""
+    import re
+    names = {"census_fused_desc_batch": "census_fused_desc_batch",
+             "census_fused_descILb0E": "census_fused_desc"}
+    usage, current = {}, None
+    for line in build_log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            current = next((v for k, v in names.items() if k in line), None)
+        elif "Used" in line and current is not None:
+            regs = re.search(r"Used (\d+) registers", line)
+            smem = re.search(r"(\d+) bytes smem", line)
+            usage[current] = dict(registers=int(regs.group(1)),
+                                  shared_bytes=int(smem.group(1))
+                                  if smem else 0)
+            current = None
+    return usage
+
+
 def batch_record(part, max_items: int, device, reps: int, flush,
                  timings) -> dict:
     """The megastep entry against its plain version and against one
     single-window launch per row of the same batch: one (8, words) launch
-    vs 8 launches, L2 flushed and warm.  The bound counts each input once
-    over the batch: the index array, each row's valid count, anchors and
-    descriptors, and the graph words of the union of the rows' pairs."""
+    vs 8 launches, L2 flushed and warm.  Then the measured batches: the
+    first K = 1, 2, 4, 8 windows of shard 0, and shard 0's last window,
+    each as the real rows of a cap-8 buffer, launched on those rows;
+    each with its valid lanes, lanes a second and bound, and the time of
+    a dispatch: the upload of its real rows from pinned memory and the
+    launch, beside the upload of every row and a launch over every row
+    (the feed before the megastep took a real count).  The bound counts
+    each input once over the batch: the index array, each row's valid
+    count, anchors and descriptors, and the graph words of the union of
+    the rows' pairs.  Also ptxas' registers and shared bytes and the
+    resident blocks per SM of the desc kernels."""
     import torch
-    from repro_torch.kernels import ops
-    batch, cases, sched = shard_batch_case(part, max_items, device, 8)
+    from repro_torch.core.planner import split_device_words
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels.census_fused import desc_occupancy
+    batch, cases, sched = shard_batch_case(part, max_items, device,
+                                           BATCH_CAP)
     graph, idx = cases[0].graph, cases[0].idx
     args = (*cases[0].iters, "none", True)
 
@@ -1297,20 +1429,9 @@ def batch_record(part, max_items: int, device, reps: int, flush,
         require(torch.equal(got[0][r], one[0]) and torch.equal(got[1][r],
                                                                one[1]),
                 f"megastep row {r} != its single-window launch")
-    indptr, _, pair_u, pair_v, _ = graph
-    pairs, nwords, nops = [], idx.numel(), 0.0
-    for r, case in enumerate(cases):
-        work = desc_work(case, (want[0][r], want[1][r]))
-        pair, _, _, valid = work["items"]
-        nv, dp, dc, dw, an = case.window
-        a = (idx // 16).clamp(0, an.shape[0] - 1)
-        pairs.append(torch.unique(pair[valid]))
-        nwords += 1 + torch.unique(a[valid]).numel() + 3 * pairs[-1].numel()
-        nops += work["bound_ops"]
-    union = torch.unique(torch.cat(pairs))
-    nwords += graph_words_read(indptr, pair_u, pair_v, union) \
-        + 67 * len(cases)
-    b, by = bound_ms(4 * nwords, nops)
+    works = [row_work(case, (want[0][r], want[1][r]))
+             for r, case in enumerate(cases)]
+    b, by, nbytes = batch_bound(graph, idx, works)
     t = timings(kernel, plain)
     parallel, serial = shard_streams_ms(part, max_items, device, reps, flush)
     rec = dict(
@@ -1318,9 +1439,9 @@ def batch_record(part, max_items: int, device, reps: int, flush,
         source="src/repro_torch/kernels/csrc/census_fused.cu",
         replaces="src/repro/kernels/census_fused.py:187", launches=0,
         max_abs_err=max_abs_err(got, want), **t, bound_ms=b, bound_by=by,
-        bound_bytes=4 * nwords, windows=len(cases),
+        bound_bytes=nbytes, windows=len(cases),
         lanes=len(cases) * idx.numel(),
-        valid_lanes=sum(int(c.window[0][0]) for c in cases),
+        valid_lanes=sum(w["valid"] for w in works),
         singles_ms=timed_ms(singles, device, reps, flush),
         singles_warm_ms=timed_ms(singles, device, reps),
         words=int(batch.shape[1]), chunk_shape=sched.chunk_shape,
@@ -1331,7 +1452,7 @@ def batch_record(part, max_items: int, device, reps: int, flush,
         f" warm_ms {rec['warm_ms']:.4f}; {rec['windows']} single-window "
         f"launches ms {rec['singles_ms']:.4f} warm_ms "
         f"{rec['singles_warm_ms']:.4f}; plain_ms {rec['plain_ms']:.4f} "
-        f"bound_ms {b:.4f} ({by}, {4 * nwords} bytes); equal to the plain "
+        f"bound_ms {b:.4f} ({by}, {nbytes} bytes); equal to the plain "
         f"version and, row for row, to the single launches")
     log(f"kernel fused_census_desc_partials: window 0 of each of the 4 "
         f"shards, launched back to back on the 4 logical devices' streams "
@@ -1339,6 +1460,80 @@ def batch_record(part, max_items: int, device, reps: int, flush,
         f"the kernels of different shard streams "
         + ("overlap on the card" if parallel < 0.9 * serial
            else "do not overlap much on the card"))
+
+    # the measured batches: K real rows of a cap-8 buffer, and the last
+    # window alone
+    steps = sched.steps_for(0)
+    last = DescCase(f"shard0-w{steps - 1}", graph, split_device_words(
+        torch.from_numpy(sched.descriptors(0, steps - 1).device_words()
+                         ).to(device), sched.num_anchors), idx,
+        cases[0].iters, "none")
+    last_want = ops.fused_census_desc_partials_ref(*last.args())
+    measured = [(f"k{k}", batch[:k], want[0][:k], want[1][:k], works[:k])
+                for k in BATCH_KS]
+    measured.append(("last", torch.cat(last.window).reshape(1, -1),
+                     last_want[0][None], last_want[1][None],
+                     [row_work(last, last_want)]))
+    cuda = device.type == "cuda"
+    rec["batches"] = []
+    for label, rows, hist, inter, row_works in measured:
+        k = rows.shape[0]
+        buf = torch.zeros_like(batch)
+        buf[:k] = rows
+        host = buf.cpu().pin_memory() if cuda else buf.clone()
+        dev = torch.empty_like(buf)
+
+        def launch(buf=buf, k=k):
+            return ops.fused_census_desc_partials_batch(*graph, buf, idx,
+                                                        *args, real=k)
+
+        def dispatch(host=host, dev=dev, k=k):
+            dev[:k].copy_(host[:k], non_blocking=True)
+            return ops.fused_census_desc_partials_batch(*graph, dev, idx,
+                                                        *args, real=k)
+
+        def dispatch_all(host=host, dev=dev):
+            dev.copy_(host, non_blocking=True)
+            return ops.fused_census_desc_partials_batch(*graph, dev, idx,
+                                                        *args)
+
+        for fn in (launch, dispatch, dispatch_all):
+            out = fn()
+            require(torch.equal(out[0][:k], hist)
+                    and torch.equal(out[1][:k], inter)
+                    and not bool(out[0][k:].any())
+                    and not bool(out[1][k:].any()),
+                    f"megastep at {label} ({fn.__name__}) != the plain "
+                    f"version's rows")
+        bb, bby, bbytes = batch_bound(graph, idx, row_works)
+        valid = sum(w["valid"] for w in row_works)
+        entry = dict(batch=label, real=k, cap=BATCH_CAP, valid_lanes=valid,
+                     ms=timed_ms(launch, device, reps, flush),
+                     warm_ms=timed_ms(launch, device, reps),
+                     dispatch_ms=timed_ms(dispatch, device, reps, flush),
+                     dispatch_all_rows_ms=timed_ms(dispatch_all, device,
+                                                   reps, flush),
+                     upload_bytes=4 * k * buf.shape[1],
+                     upload_all_rows_bytes=4 * buf.numel(),
+                     bound_ms=bb, bound_by=bby, bound_bytes=bbytes)
+        entry["lanes_per_s"] = valid / (entry["ms"] / 1e3)
+        rec["batches"].append(entry)
+        log(f"kernel fused_census_desc_partials_batch at {label} ({k} real "
+            f"rows of {BATCH_CAP}, valid lanes {valid}): ms "
+            f"{entry['ms']:.4f} (L2 flushed) warm_ms {entry['warm_ms']:.4f}"
+            f" lanes/s {entry['lanes_per_s']:.4e} bound_ms {bb:.4f} ({bby})"
+            f" = {bb / entry['ms']:.2%}; dispatch (upload "
+            f"{entry['upload_bytes']} B of its rows + launch) ms "
+            f"{entry['dispatch_ms']:.4f}, with every row uploaded "
+            f"({entry['upload_all_rows_bytes']} B) and launched ms "
+            f"{entry['dispatch_all_rows_ms']:.4f}; equal to the plain "
+            f"version")
+    if cuda:
+        usage = ptxas_usage(build.build().parent / "build.log")
+        rec["ptxas"] = usage
+        rec["occupancy"] = desc_occupancy(device)
+        log(f"kernel census desc resources: ptxas {usage}; resident blocks "
+            f"per SM {rec['occupancy']}")
     return rec
 
 
@@ -1525,6 +1720,83 @@ def partitioned_phase(g, device, max_items: int, part_none, part_s: float,
                     f"measured")
     return dict(batch_launches=batch_launches,
                 async_wall_s=walls[("1d async", "none")])
+
+
+def async_run(g, part, device, max_items: int) -> dict:
+    """The partitioned phase's first run alone: the main graph's 1D async
+    orient-none run over 4 logical devices at megastep cap 8, on the
+    prebuilt partition ``part``, ``AB_RUN_WALLS`` times untraced (host
+    clock after a synchronize), then once traced (device busy: the union
+    of its kernel, copy and memset spans).  Every census must be equal
+    and sum to C(n, 3).  Only names that every version of the package
+    since the megastep has are used, so another commit's package can run
+    it (``--ab-tree``)."""
+    import torch
+    from repro_torch import CensusEngine, default_devices
+    from repro_torch.kernels import ops
+    total = g.n * (g.n - 1) * (g.n - 2) // 6
+    engine = CensusEngine(devices=default_devices(4), backend="fused",
+                          partition=True, max_windows_per_dispatch=8)
+
+    def run():
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        census = engine.run(g, max_items=max_items, orient="none", part=part)
+        torch.cuda.synchronize()
+        return census, time.perf_counter() - t0
+
+    walls, censuses = [], []
+    for _ in range(AB_RUN_WALLS):
+        census, wall = run()
+        walls.append(wall)
+        censuses.append(census)
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        census, traced = run()
+    censuses.append(census)
+    require(all((c == census).all() for c in censuses)
+            and int(census.sum()) == total,
+            "the async runs' censuses differ or miss C(n, 3)")
+    split = trace_split(prof, device)
+    st = engine.stats
+    return dict(walls_s=walls, traced_wall_s=traced,
+                busy_ms=split["busy_ms"], kernel_ms=split["kernel_ms"],
+                idle=1 - split["busy_ms"] / 1e3 / traced,
+                dispatches=st.dispatches_total,
+                launches=ops.fused_census_desc_partials_batch.launches,
+                census=census.tolist())
+
+
+def ab_tree_phase(tree: Path) -> None:
+    """``async_run`` with the package of ``tree/src`` (another commit's
+    checkout) against this checkout's, in turns -- this, the other, the
+    other, this -- each in a process of its own (``--async-run``), which
+    builds its package's kernels and the main graph and partition
+    anew.  Prints a line per turn and ``{"ab_tree": [...]}``."""
+    srcs = {"package": ROOT / "src", str(tree): tree.resolve() / "src"}
+    require(srcs[str(tree)].is_dir(), f"--ab-tree {tree}: no src/ there")
+    turns = []
+    for turn, name in enumerate(["package", str(tree), str(tree),
+                                 "package"]):
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--async-run",
+             str(srcs[name])], capture_output=True, text=True, timeout=900)
+        require(proc.returncode == 0,
+                f"--async-run with {name} failed:\n{proc.stdout[-3000:]}\n"
+                f"{proc.stderr[-3000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])["async_run"]
+        turns.append(dict(tree=name, turn=turn, **res))
+        log(f"ab tree 1d async none cap 8 turn {turn} {name}: walls "
+            f"{', '.join(f'{w:.4f}' for w in res['walls_s'])} s, traced "
+            f"{res['traced_wall_s']:.4f} s, device busy {res['busy_ms']:.4f}"
+            f" ms (megastep kernels {res['kernel_ms']:.4f} ms), idle "
+            f"{res['idle']:.4%}, dispatches {res['dispatches']}, megastep "
+            f"launches {res['launches']}")
+    require(len({tuple(t["census"]) for t in turns}) == 1,
+            "the trees' censuses differ")
+    print(json.dumps({"ab_tree": [{k: v for k, v in t.items()
+                                   if k != "census"} for t in turns]}))
 
 
 class _Stop(Exception):
@@ -3896,9 +4168,21 @@ def main(argv=None) -> int:
                              "against the package's, in turns, at their "
                              "measured windows (on the card); prints no "
                              "result")
+    parser.add_argument("--ab-tree", type=Path, metavar="DIR",
+                        help="time the 1D async orient-none cap-8 run of "
+                             "the main graph with the package of DIR/src "
+                             "(another commit's checkout) against this "
+                             "checkout's, in turns, each in a process of "
+                             "its own (on the card, after --ab's kernels "
+                             "when both are given); prints no result")
+    parser.add_argument("--async-run", type=Path, metavar="SRC",
+                        help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
-    if args.ab and args.rehearse:
-        parser.error("--ab runs on the card only")
+    if (args.ab or args.ab_tree or args.async_run) and args.rehearse:
+        parser.error("--ab, --ab-tree and --async-run run on the card only")
+    if args.async_run is not None:
+        # one --ab-tree turn: the package of SRC, not this checkout's
+        sys.path.insert(0, str(args.async_run.resolve()))
     t_start = time.perf_counter()
 
     import torch
@@ -3910,6 +4194,9 @@ def main(argv=None) -> int:
             raise SystemExit("chip_smoke: no CUDA device; this script "
                              "drives the port on the card")
         device = torch.device("cuda", 0)
+    if args.ab_tree is not None and not args.ab:
+        ab_tree_phase(args.ab_tree)
+        return 0
     import repro_torch as rt
     header(device)
     if device.type == "cuda":
@@ -3942,9 +4229,15 @@ def main(argv=None) -> int:
         + rt.shard_report(part))
     phase_done("graphs and partition", t_start)
     reps = 20 if device.type == "cuda" else 2
+    if args.async_run is not None:
+        print(json.dumps({"async_run": async_run(g, part, device,
+                                                 max_items)}))
+        return 0
     if args.ab:
         ab_phase(g, hub, part, device, max_items, session_ks[1], args.ab,
                  reps)
+        if args.ab_tree is not None:
+            ab_tree_phase(args.ab_tree)
         return 0
     records, codes_case = kernel_phase(g, hub, part, device, max_items,
                                        session_ks[1], reps)

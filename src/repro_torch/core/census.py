@@ -250,7 +250,8 @@ def census_partials_desc(indptr, packed, pair_u, pair_v, pair_code,
 def census_partials_desc_batch(indptr, packed, pair_u, pair_v, pair_code,
                                words_batch, idx, search_iters: int,
                                desc_iters: int, orient: str,
-                               prune_self: bool, histogram_fn=None):
+                               prune_self: bool, histogram_fn=None,
+                               real: int | None = None):
     """K-window megastep partials: ``(hist64s (K, 64), inter3s (K, 3))``.
 
     ``words_batch`` is a ``(K, words)`` int32 batch of stacked
@@ -259,16 +260,19 @@ def census_partials_desc_batch(indptr, packed, pair_u, pair_v, pair_code,
     (``num_anchors`` from the length of ``idx``).  Each row runs through
     :func:`census_partials_desc`; a row whose word 0 (``num_preprune``) is
     0 is padding and gives exact zeros without any compute, as the JAX
-    package's ``lax.cond`` does.  The per-row partials come back stacked,
-    int32, for the engine to merge on the host in int64.
+    package's ``lax.cond`` does.  ``real`` (1 to K; every row when None)
+    counts the batch's real windows: rows from ``real`` on are never read
+    and give zeros, whatever they hold.  The per-row partials come back
+    stacked, int32, for the engine to merge on the host in int64.
     """
     num_anchors = num_desc_anchors(idx.shape[0])
     rows = words_batch.shape[0]
+    real = batch_real_rows(rows, real)
     hist = torch.zeros((rows, 64), dtype=torch.int32,
                        device=words_batch.device)
     inter = torch.zeros((rows, 3), dtype=torch.int32,
                         device=words_batch.device)
-    for r in range(rows):
+    for r in range(real):
         words = words_batch[r]
         if int(words[0]) == 0:
             continue
@@ -278,6 +282,17 @@ def census_partials_desc_batch(indptr, packed, pair_u, pair_v, pair_code,
             idx, search_iters, desc_iters, orient, prune_self,
             histogram_fn)
     return hist, inter
+
+
+def batch_real_rows(rows: int, real: int | None) -> int:
+    """The real windows of a ``rows``-row megastep batch: ``real``, or
+    every row when None.  Raises unless ``1 <= real <= rows``."""
+    if real is None:
+        return rows
+    if isinstance(real, bool) or int(real) != real or not 1 <= real <= rows:
+        raise ValueError(f"a batch of {rows} rows holds 1 to {rows} real "
+                         f"windows, got {real!r}")
+    return int(real)
 
 
 def assemble_counts(n: int, base_asym: int, base_mut: int,

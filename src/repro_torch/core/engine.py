@@ -557,31 +557,39 @@ class _Pipeline:
         self.count = 0
         self.launched = 0
 
-    def submit(self, words: np.ndarray, launch, fire=None):
+    def submit(self, words: np.ndarray, launch, fire=None,
+               real: int | None = None):
         """Ship host buffer ``words``, enqueue ``launch(device_words) ->
         (hist, inter)`` on the compute stream and start bringing its
-        partials back; returns a ticket for :meth:`land`.  ``fire(site)``
+        partials back; returns a ticket for :meth:`land`.  With ``real``
+        (a megastep batch's real windows) only the first ``real`` rows of
+        ``words`` are copied, into the first rows of the device buffer,
+        and the launch is ``launch(device_words, real)``: the rows past
+        them keep whatever an earlier batch left there.  ``fire(site)``
         (a fault injector's hook) is called with ``"upload"`` before the
         copy and ``"dispatch"`` before the launch; when it raises, the
         attempt ends there and its buffers are reused only after their
         events, as for any dispatch."""
         if fire is not None:
             fire("upload")
+        extra = () if real is None else (real,)
         if not self.cuda:
             if fire is not None:
                 fire("dispatch")
-            return launch(torch.from_numpy(words))
+            return launch(torch.from_numpy(words), *extra)
         k = self.count
         self.count += 1
         slot = k % 2
         if self.copied[slot] is not None:
             self.copied[slot].synchronize()
-        self.host_in[slot].numpy()[...] = words
+        rows = slice(None) if real is None else slice(0, real)
+        self.host_in[slot][rows].numpy()[...] = words[rows]
         copied = torch.cuda.Event()
         with torch.cuda.stream(self.copy_stream):
             if self.read[slot] is not None:
                 self.copy_stream.wait_event(self.read[slot])
-            self.dev_in[slot].copy_(self.host_in[slot], non_blocking=True)
+            self.dev_in[slot][rows].copy_(self.host_in[slot][rows],
+                                          non_blocking=True)
             copied.record(self.copy_stream)
         self.copied[slot] = copied
         if fire is not None:
@@ -590,7 +598,7 @@ class _Pipeline:
         out = self.host_out[r]
         with torch.cuda.stream(self.stream):
             self.stream.wait_event(copied)
-            hist, inter = launch(self.dev_in[slot])
+            hist, inter = launch(self.dev_in[slot], *extra)
             read = torch.cuda.Event()
             read.record(self.stream)
             self.read[slot] = read
@@ -1442,8 +1450,10 @@ class CensusEngine:
         ``(cap, words)`` batch (:class:`repro_torch.core.plan_stream
         .WindowBatcher`, ``cap = min(max_windows_per_dispatch, longest
         shard queue)``) and one launch runs them all; K adapts between 1
-        and ``cap`` from stalls and backlog.  ``emit="host"`` dispatches
-        one window at a time and skips fully pruned windows.
+        and ``cap`` from stalls and backlog.  Only the batch's real rows
+        are uploaded and launched; the stats still count the padded
+        shape, as the JAX package's engine defines them.  ``emit="host"``
+        dispatches one window at a time and skips fully pruned windows.
 
         Partials land on the host in int64, in any order — integer
         sums, so the landing order cannot change a bit.
@@ -1532,7 +1542,8 @@ class CensusEngine:
 
             def launcher(graph, device):
                 ix = idx[device]
-                return lambda words: step(*graph, words, ix)
+                return lambda words, real: step(*graph, words, ix,
+                                                real=real)
 
             def make_source(s, skip=0):
                 def gen():
@@ -1634,8 +1645,12 @@ class CensusEngine:
             pipe, launch = route(s)
             fire = (None if injector is None else
                     lambda site: injector.fire(site, shard=s, device=d_id))
-            words = window[0] if emit == "device" else window[1]
-            ticket = pipe.submit(words, launch, fire)
+            if emit == "device":
+                # a megabatch: upload and launch its real rows only
+                ticket = pipe.submit(window[0], launch, fire,
+                                     real=window[1])
+            else:
+                ticket = pipe.submit(window[1], launch, fire)
             poisoned = (injector.take_poison()
                         if injector is not None else False)
             return (pipe, ticket), poisoned

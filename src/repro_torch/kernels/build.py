@@ -40,6 +40,7 @@ SIGNATURES = {
     "census_fused_desc_probe_launch": ([_P] * 11 + [_I] * 4 + [_P] * 4,
                                        _I),
     "census_fused_desc_batch_launch": ([_P] * 7 + [_I] * 6 + [_P, _P], _I),
+    "census_fused_desc_occupancy": ([_P], _I),
     "census_fused_items_launch": ([_P] * 7 + [_I] + [_P, _P], _I),
     "census_fused_items_probe_launch": ([_P] * 7 + [_I] + [_P] * 5, _I),
     "tricode_hist_launch": ([_P, _P, _I, _P, _P], _I),

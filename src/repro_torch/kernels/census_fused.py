@@ -16,10 +16,12 @@ true-length, unpadded int32 vectors; the kernels handle the ragged tail.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.census import batch_real_rows
 from repro_torch.core.planner import DESC_ANCHOR_STRIDE, num_desc_anchors
 from repro_torch.kernels import build
 
@@ -215,18 +217,20 @@ def census_fused_desc_kernel(indptr, packed, pair_u, pair_v, pair_code,
 
 def census_fused_desc_batch_kernel(indptr, packed, pair_u, pair_v,
                                    pair_code, words_batch, idx, orient: str,
-                                   prune_self: bool) -> torch.Tensor:
-    """Launch the K-window megastep on CUDA tensors: one launch of grid
-    (tiles, K) runs ``census_fused_desc``'s body on every row of the
-    row-major ``(K, words)`` int32 ``words_batch``
-    (:meth:`repro_torch.core.planner.DescriptorWindow.device_words` rows
-    of one geometry: ``words = 1 + 3 * num_descs + num_anchors`` with
-    ``num_anchors = num_desc_anchors(len(idx))``), each row expanding the
-    same flat-index array ``idx``.
+                                   prune_self: bool,
+                                   real: int | None = None) -> torch.Tensor:
+    """Launch the K-window megastep on CUDA tensors: one launch runs
+    ``census_fused_desc``'s stage and fold on the first ``real`` rows
+    (all ``K`` when None) of the row-major ``(K, words)`` int32
+    ``words_batch`` (:meth:`repro_torch.core.planner.DescriptorWindow
+    .device_words` rows of one geometry: ``words = 1 + 3 * num_descs +
+    num_anchors`` with ``num_anchors = num_desc_anchors(len(idx))``), each
+    row expanding the same flat-index array ``idx``.  Rows at or past
+    ``real`` are never read: they may hold anything.
 
-    Returns the ``int32 (K, 67)`` output, zeroed by a memset in the same
-    C call: row y is what ``census_fused_desc_kernel`` returns for row y,
-    and a row whose word 0 is 0 stays all zero.  Launches on the current
+    Returns the ``int32 (K, 67)`` output: row y < ``real`` is what
+    ``census_fused_desc_kernel`` returns for row y (zero when its word 0
+    is 0), and every row past ``real`` is zero.  Launches on the current
     stream and does not synchronise.
     """
     device, ptrs = _graph_pointers("census_fused_desc_batch_kernel", indptr,
@@ -246,16 +250,32 @@ def census_fused_desc_batch_kernel(indptr, packed, pair_u, pair_v,
     if not 1 <= rows <= MAX_BATCH_ROWS:
         raise ValueError(f"a batch holds 1 to {MAX_BATCH_ROWS} windows, "
                          f"got {rows}")
+    real = batch_real_rows(rows, real)
     ptrs += [words_batch.data_ptr(), build.require_vector("idx", idx, device)]
     out = torch.empty((rows, OUT_WORDS), dtype=torch.int32, device=device)
     lib = build.load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.census_fused_desc_batch_launch(
-            *ptrs, rows, width, num_descs, num_anchors, idx.shape[0],
+            *ptrs, real, width, num_descs, num_anchors, idx.shape[0],
             _keep_mode(orient, prune_self), out.data_ptr(), stream)
-    build.check(lib, err, "census_fused_desc_batch")
+        build.check(lib, err, "census_fused_desc_batch")
+        if real < rows:
+            out[real:].zero_()
     return out
+
+
+def desc_occupancy(device) -> dict:
+    """The CUDA ``device``'s SM count and the resident blocks per SM of
+    ``census_fused_desc`` and of the megastep (the occupancy calculator's
+    answer for their registers and shared memory)."""
+    lib = build.load_library()
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        build.check(lib, lib.census_fused_desc_occupancy(out),
+                    "census_fused_desc_occupancy")
+    return dict(sms=out[0], desc_blocks_per_sm=out[1],
+                batch_blocks_per_sm=out[2])
 
 
 class DescProbe(NamedTuple):

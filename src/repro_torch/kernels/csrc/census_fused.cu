@@ -8,8 +8,9 @@
 //   the same kernel under lax.scan over a (K, words) window batch
 //   (src/repro/core/census.py census_partials_desc_batch, the async
 //   partitioned megastep)                        -> census_fused_desc_batch
-//     one launch of grid (tiles, K) runs the same body, desc_tile(), on
-//     every row; the single-window kernel is that body at grid (tiles).
+//     one launch of grid (tiles, real rows) runs the same body,
+//     desc_tile(), on every real row, skipping tiles past a row's valid
+//     count; the single-window kernel is that body at grid (tiles).
 //   census_fused_kernel (body _kernel)           -> census_fused_items
 //     host emission: the same classify-and-fold fed packed item words
 //     item_sp = slot << 1 | side, item_pv = pair << 1 | valid.
@@ -558,17 +559,40 @@ census_fused_desc(GraphArrays g, DescWindow win,
 // The K-window megastep: row y of the (K, row_stride) int32 batch is one
 // DescriptorWindow.device_words() row -- num_preprune, then num_descs
 // desc_pair, desc_cum and desc_within0 words, then num_anchors anchors
-// -- and block (x, y) runs tile x of it into out[y] (int32[67] each).
-// A padding row (word 0 == 0) returns before any work, block-uniformly
-// and before the first barrier: its output row stays zero, as the
-// reference's lax.cond leaves it.
+// -- and block (x, y) runs tile x of it into out[y] (int32[67] each)
+// through desc_tile, the single-window kernel's body.  The launch covers
+// the batch's real rows only.  A padding row (word 0 == 0) returns at
+// once.  A block whose tile reaches past its row's valid count (the tail
+// of a shard's last window) first reads the tile's indices and returns
+// when none is a valid lane; a full tile reads nothing more.  Both exits
+// are block-uniform and come before the first barrier: the output row
+// stays zero, as the reference's lax.cond leaves a padding row's.
+//
+// A tile-major design -- one block per tile walking every row, reading
+// the tile's indices once, computing in-order indices instead of loading
+// them, fetching the next row's anchors by cp.async during a row's fold
+// -- measured 10-12 % slower at every full batch (PERF.md, section 6):
+// its loop over rows keeps block state live across the fold, so it
+// spills at 40 registers or fits 5 blocks per SM at 48, where this body
+// fits 6 at 40.
 __global__ void __launch_bounds__(kThreads)
 census_fused_desc_batch(GraphArrays g, const int* __restrict__ words,
                         int row_stride, int num_descs, int num_anchors,
                         const int* __restrict__ idx, int num_items,
                         int keep_mode, int* __restrict__ out) {
   const int* row = words + static_cast<long long>(blockIdx.y) * row_stride;
-  if (__ldg(row) == 0) return;
+  const int num_valid = __ldg(row);
+  if (num_valid == 0) return;
+  const int first = blockIdx.x * kBlockItems;
+  const int count = min(num_items - first, kBlockItems);
+  if (num_valid < first + count) {
+    bool live = false;
+    for (int t = threadIdx.x; t < count; t += kThreads) {
+      const int i = __ldg(idx + first + t);
+      live = live || (i >= 0 && i < num_valid);
+    }
+    if (!__syncthreads_or(live)) return;
+  }
   const DescWindow win{row + 1,
                        row + 1 + num_descs,
                        row + 1 + 2 * num_descs,
@@ -1085,13 +1109,15 @@ int census_fused_desc_probe_launch(
                            keep_mode, out, tile_staged, lane_staged, stream);
 }
 
-// The K-window megastep: words is a (num_rows, row_stride) int32 batch of
-// descriptor windows of one geometry (num_descs descriptors, num_anchors
-// anchors; row_stride = 1 + 3 num_descs + num_anchors), idx the
-// num_items-lane flat-index array every row expands.  out: int32
-// [num_rows][67], zeroed here (one memset on the stream) and then
-// accumulated, row y from batch row y; rows whose word 0 is 0 stay zero.
-// Returns the memset's error, else cudaGetLastError() after the launch.
+// The K-window megastep: words holds (at least num_rows) rows of
+// row_stride int32 words, descriptor windows of one geometry (num_descs
+// descriptors, num_anchors anchors; row_stride = 1 + 3 num_descs +
+// num_anchors), idx the num_items-lane flat-index array every row
+// expands.  Only the first num_rows rows are read: the batch's real
+// windows.  out: int32[num_rows][67], zeroed here (one memset on the
+// stream) and then accumulated, row y from batch row y; rows whose word 0
+// is 0 stay zero.  Returns the first CUDA error of the calls, else
+// cudaGetLastError() after the launch.
 int census_fused_desc_batch_launch(const int* indptr, const int* packed,
                                    const int* pair_u, const int* pair_v,
                                    const int* pair_code, const int* words,
@@ -1109,6 +1135,27 @@ int census_fused_desc_batch_launch(const int* indptr, const int* packed,
       g, words, row_stride, num_descs, num_anchors, idx, num_items,
       keep_mode, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The current device's SM count, then the resident blocks per SM of
+// census_fused_desc and of the megastep (the occupancy calculator's
+// answer for their registers and shared memory): out is int[3] in host
+// memory.  Returns the first CUDA error of the queries.
+int census_fused_desc_occupancy(int* out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(out, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out + 1, census_fused_desc<false>, kThreads, 0);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out + 2, census_fused_desc_batch, kThreads, 0);
+  }
+  return static_cast<int>(err);
 }
 
 // out: zeroed int32[67] -- hist64, inter-asym, inter-mut (lane 66 stays 0).

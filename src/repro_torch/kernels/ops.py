@@ -138,23 +138,25 @@ def fused_census_desc_partials(indptr, packed, pair_u, pair_v, pair_code,
 def fused_census_desc_partials_batch(indptr, packed, pair_u, pair_v,
                                      pair_code, words_batch, idx,
                                      search_iters: int, desc_iters: int,
-                                     orient: str, prune_self: bool):
+                                     orient: str, prune_self: bool,
+                                     real: int | None = None):
     """K-window megastep partials: ``(hist64s (K, 64), inter3s (K, 3))``.
 
     Drop-in replacement for :func:`repro_torch.core.census
     .census_partials_desc_batch` (backend ``"fused"``): one launch runs
-    every row of the ``(K, words)`` descriptor-window batch through the
-    desc kernel's body; rows whose word 0 is 0 are padding and come back
-    as zeros.  Counts its own launches, apart from the single-window
-    wrapper's.
+    the first ``real`` rows (every row when None) of the ``(K, words)``
+    descriptor-window batch through the desc kernel's stage and fold;
+    rows whose word 0 is 0, and every row past ``real`` (never read),
+    come back as zeros.  Counts its own launches, apart from the
+    single-window wrapper's.
     """
     if _on_cpu(indptr, packed, pair_u, pair_v, pair_code, words_batch, idx):
         return fused_census_desc_partials_batch_ref(
             indptr, packed, pair_u, pair_v, pair_code, words_batch, idx,
-            search_iters, desc_iters, orient, prune_self)
+            search_iters, desc_iters, orient, prune_self, real=real)
     out = census_fused.census_fused_desc_batch_kernel(
         indptr, packed, pair_u, pair_v, pair_code, words_batch, idx,
-        orient, prune_self)
+        orient, prune_self, real=real)
     fused_census_desc_partials_batch.launches += 1
     return out[:, :64], out[:, 64:67]
 

@@ -52,9 +52,11 @@ def fused_census_desc_partials_ref(indptr, packed, pair_u, pair_v,
 def fused_census_desc_partials_batch_ref(indptr, packed, pair_u, pair_v,
                                          pair_code, words_batch, idx,
                                          search_iters: int, desc_iters: int,
-                                         orient: str, prune_self: bool):
-    """``(hist64s (K, 64), inter3s (K, 3))`` int32 from a ``(K, words)``
-    batch of descriptor windows; zero rows give zeros."""
+                                         orient: str, prune_self: bool,
+                                         real: int | None = None):
+    """``(hist64s (K, 64), inter3s (K, 3))`` int32 from the first ``real``
+    rows (every row when None) of a ``(K, words)`` batch of descriptor
+    windows; zero rows and rows past ``real`` give zeros."""
     return census_partials_desc_batch(
         indptr, packed, pair_u, pair_v, pair_code, words_batch, idx,
-        search_iters, desc_iters, orient, prune_self)
+        search_iters, desc_iters, orient, prune_self, real=real)

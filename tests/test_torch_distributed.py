@@ -17,11 +17,13 @@ is zero.
 import dataclasses
 import functools
 
+import jax
 import numpy as np
 import pytest
 import torch
 
 import repro_torch as rt
+from repro.core import census as ref_census
 from repro.core import CensusEngine as RefEngine
 from repro.core import build_plan as ref_build_plan
 from repro.core import default_mesh
@@ -33,6 +35,8 @@ from repro.core import triad_census_graph as ref_census_graph
 from repro.core.digraph import CompactDigraph as RefDigraph
 from repro_torch.core import engine as engine_mod
 from repro_torch.core import partition
+from repro_torch.kernels import ops
+from torch_partition_cases import SHARD_WINDOWS, windows_owner
 
 torch.set_num_threads(1)
 
@@ -310,6 +314,166 @@ def test_megastep_dispatches_fewer_at_equal_windows():
         disp[cap] = eng.stats.dispatches_total
         windows.add(sum(eng.stats.shard_steps))
     assert len(windows) == 1 and disp[8] * 2 <= disp[1]
+
+
+#: the reference's megastep compiled whole, as its engine runs it
+ref_batch = jax.jit(ref_census.census_partials_desc_batch,
+                    static_argnums=(7, 8, 9, 10))
+
+
+def zero_past(words, real):
+    """A copy of a (K, words) batch with every row past ``real`` zero,
+    as the JAX package's batcher pads it."""
+    out = np.array(words)
+    out[real:] = 0
+    return out
+
+
+def ref_batch_partials(args, real, search_iters, desc_iters, orient,
+                       prune_self):
+    """The reference's per-window partials of the batch a port megastep
+    was given (graph arrays, words, idx), its rows past ``real`` zero."""
+    graph = [np.asarray(a) for a in args[:5]]
+    hist, inter = ref_batch(*graph, zero_past(args[5], real),
+                            np.asarray(args[6]), search_iters, desc_iters,
+                            orient, prune_self)
+    return np.asarray(hist), np.asarray(inter)
+
+
+@functools.lru_cache(maxsize=None)
+def partial_batch_case(orient):
+    """pl70 over 4 shards of 1, 2, 3 and 5 windows, and the reference's
+    async run of it (cap 8, so 5: the longest queue)."""
+    g = graph("pl70")
+    owner, max_items = windows_owner(rt.pair_space(g, orient=orient))
+    ref_part = ref_partition_graph(
+        num_shards=4, space=ref_pair_space(to_reference(g), orient=orient),
+        owner=owner)
+    ref = RefEngine(mesh=default_mesh(4), backend="jnp", partition=True,
+                    schedule="async", max_windows_per_dispatch=8)
+    want = ref.run(to_reference(g), max_items=max_items, part=ref_part)
+    return owner, max_items, want, ref.stats
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("orient", ["none", "degree"])
+def test_async_partial_batches_match_reference(orient, backend,
+                                               monkeypatch):
+    """Shards of 1, 2, 3 and 5 windows under cap 8: every shard but the
+    longest ends on a partial batch.  Each megastep gets its buffer and
+    its real row count, which counts the buffer's windows; its per-window
+    partials equal the reference's megastep on the same windows, zero
+    past the real rows; the census and the stats equal the reference
+    engine's."""
+    owner, max_items, want, want_st = partial_batch_case(orient)
+    g = graph("pl70")
+    part = rt.partition_graph(num_shards=4,
+                              space=rt.pair_space(g, orient=orient),
+                              owner=owner)
+    calls, params = [], []
+    make_step = engine_mod.desc_batch_partials_fn
+
+    def spy(*a):
+        params.extend(a[1:])  # search_iters, desc_iters, orient, prune_self
+        step = make_step(*a)
+
+        def run(*args, real=None):
+            out = step(*args, real=real)
+            calls.append((args, real, out))
+            return out
+        return run
+
+    monkeypatch.setattr(engine_mod, "desc_batch_partials_fn", spy)
+    eng = rt.CensusEngine(devices=rt.default_devices(4, "cpu"),
+                          backend=backend, partition=True, schedule="async",
+                          max_windows_per_dispatch=8)
+    got = eng.run(g, max_items=max_items, part=part)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, oracle("pl70"))
+    st = eng.stats
+    assert st.shard_steps == list(SHARD_WINDOWS)
+    assert_stats(st, want_st, ASYNC)
+    assert sorted(st.chunk_items) == sorted(want_st.chunk_items)
+    assert_async_bounds(st)
+    assert len(calls) == st.dispatches_total
+    assert sum(real for _, real, _ in calls) == sum(SHARD_WINDOWS)
+    assert params[2] == orient
+    for args, real, (hist, inter) in calls:
+        words = args[5].numpy()
+        assert words.shape[0] == st.dispatch_batch_limit == 5
+        # the real rows are the buffer's windows, in front
+        assert (words[:real, 0] > 0).all() and not words[real:].any()
+        want_h, want_i = ref_batch_partials(args, real, *params)
+        np.testing.assert_array_equal(hist.numpy(), want_h)
+        np.testing.assert_array_equal(inter.numpy(), want_i)
+
+
+def shard_batch(shard=3):
+    """The windows of one shard of pl70's 1, 2, 3, 5-window partition
+    (shard 3: 5 windows) as a (5, words) batch, with the shard's arrays,
+    the index array and the schedule."""
+    space = rt.pair_space(graph("pl70"))
+    owner, max_items = windows_owner(space)
+    part = rt.partition_graph(num_shards=4, space=space, owner=owner)
+    sched = rt.ShardSchedule([sh.space for sh in part.shards], max_items, 4)
+    arrays = [a[shard] for a in rt.stacked_device_arrays(part.shards)]
+    rows = np.stack([sched.descriptors(shard, j).device_words()
+                     for j in range(sched.steps_for(shard))])
+    idx = np.arange(sched.chunk_shape, dtype=np.int32)
+    return arrays, rows, idx, (space.search_iters, sched.desc_iters)
+
+
+@pytest.mark.parametrize("real", [1, 2, 4])
+def test_megastep_never_reads_rows_past_real(real):
+    """Rows past ``real`` holding other windows, as an earlier batch
+    leaves the device buffer: the plain megastep and the fused wrapper
+    (its plain version on the CPU) give the reference's partials of the
+    zero-padded batch, zero past ``real``."""
+    arrays, rows, idx, iters = shard_batch()
+    stale = rows.copy()
+    stale[real:] = rows[::-1][real:]
+    assert stale[real:, 0].all()
+    want = ref_batch(*arrays, zero_past(rows, real), idx, *iters, "none",
+                     True)
+    args = ([torch.from_numpy(a) for a in arrays], torch.from_numpy(stale),
+            torch.from_numpy(idx), *iters, "none", True)
+    for fn in (rt.census_partials_desc_batch,
+               ops.fused_census_desc_partials_batch):
+        got = fn(*args[0], *args[1:], real=real)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        assert not got[0][real:].any() and not got[1][real:].any()
+
+
+@pytest.mark.parametrize("bad", [0, -1, 6, 2.5, True])
+def test_megastep_refuses_bad_real_counts(bad):
+    arrays, rows, idx, iters = shard_batch()
+    for fn in (rt.census_partials_desc_batch,
+               ops.fused_census_desc_partials_batch):
+        with pytest.raises(ValueError, match="real windows"):
+            fn(*(torch.from_numpy(a) for a in arrays),
+               torch.from_numpy(rows), torch.from_numpy(idx), *iters,
+               "none", True, real=bad)
+
+
+def test_pipeline_feeds_real_rows():
+    """``_Pipeline.submit(..., real=r)`` hands the launch the whole
+    buffer and ``r``; without ``real`` the launch takes the buffer
+    alone."""
+    pipe = engine_mod._Pipeline(torch.device("cpu"), (4, 3), rows=4)
+    seen = []
+    partials = (torch.ones((4, 64), dtype=torch.int32),
+                torch.ones((4, 3), dtype=torch.int32))
+
+    def launch(words, *real):
+        seen.append((tuple(words.shape), real))
+        return partials
+
+    words = np.arange(12, dtype=np.int32).reshape(4, 3)
+    hist, inter = pipe.land(pipe.submit(words, launch, real=2))
+    pipe.submit(words, launch)
+    assert seen == [((4, 3), (2,)), ((4, 3), ())]
+    assert hist.shape == (4, 64) and inter.shape == (4, 3)
 
 
 def test_megastep_matches_pallas_fused_in_interpret_mode():

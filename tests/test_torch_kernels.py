@@ -17,7 +17,8 @@ import torch
 import repro_torch as rt
 from repro_torch.core.incremental import (affected_pair_ids,
                                           subset_descriptor_windows)
-from repro_torch.core.planner import (emit_items_for_pairs, pad_and_pack,
+from repro_torch.core.planner import (descriptor_window,
+                                     emit_items_for_pairs, pad_and_pack,
                                      split_device_words)
 from repro_torch.kernels import ops
 from repro_torch.kernels.census_fused import (BLOCK_ITEMS, STAGE_RUNS,
@@ -657,21 +658,27 @@ def shard_schedule(g, max_items, orient="none", mesh=None, shards=4):
     return part, sched
 
 
-def hold_batch(graph, batch, idx, orient, search_iters, desc_iters):
+def hold_batch(graph, batch, idx, orient, search_iters, desc_iters,
+               real=None):
     """One megastep launch on a (K, words) batch against the plain
     version and, row for row, against single-window launches of each
-    row (zero rows: zeros, and no single launch)."""
+    row (zero rows: zeros, and no single launch).  With ``real``, only
+    the first ``real`` rows are the batch's: every row past them comes
+    back zero, whatever it holds."""
     args = (search_iters, desc_iters, orient, True)
     before = ops.fused_census_desc_partials_batch.launches
-    got = ops.fused_census_desc_partials_batch(*graph, batch, idx, *args)
+    got = ops.fused_census_desc_partials_batch(*graph, batch, idx, *args,
+                                               real=real)
     assert ops.fused_census_desc_partials_batch.launches == before + 1
     want = ops.fused_census_desc_partials_batch_ref(*graph, batch, idx,
-                                                    *args)
+                                                    *args, real=real)
     assert_same(got, want)
     assert got[0].shape == (batch.shape[0], 64)
     assert got[1].shape == (batch.shape[0], 3)
+    rows = batch.shape[0] if real is None else real
+    assert not bool(got[0][rows:].any()) and not bool(got[1][rows:].any())
     anchors = ck_anchors(idx)
-    for r in range(batch.shape[0]):
+    for r in range(rows):
         if int(batch[r, 0]) == 0:
             assert not bool(got[0][r].any()) and not bool(got[1][r].any())
             continue
@@ -762,6 +769,156 @@ def test_desc_batch_rejects_bad_batches(cuda):
         with pytest.raises((ValueError, TypeError)):
             ops.fused_census_desc_partials_batch(*graph, bad, idx, *args)
     assert ops.fused_census_desc_partials_batch.launches == before
+
+
+def stale_batch(rows, real, stale, cap=8):
+    """A (cap, words) int32 batch: ``rows[:real]`` first, then the
+    ``stale`` windows' words (an earlier batch left on the card) or
+    zeros (as the batcher pads)."""
+    buf = np.zeros((cap, rows[0].shape[0]), np.int32)
+    buf[:real] = rows[:real]
+    for r, words in zip(range(real, cap), stale):
+        buf[r] = words
+    return torch.from_numpy(buf)
+
+
+def shard0_rows(cuda, max_items=2**16, orient="none"):
+    """Shard 0 of a hub graph's 1D partition over 4: its resident arrays
+    on the card, its window rows and the schedule."""
+    g = rt.paper_workload("orkut", 1000, 20.0, seed=0)
+    part, sched = shard_schedule(g, max_items, orient)
+    graph = tuple(torch.from_numpy(a[0]).to(cuda)
+                  for a in rt.stacked_device_arrays(part.shards))
+    rows = [sched.descriptors(0, j).device_words()
+            for j in range(sched.steps_for(0))]
+    return part, sched, graph, rows
+
+
+@pytest.mark.parametrize("stale", [False, True])
+@pytest.mark.parametrize("k", list(range(1, 9)))
+def test_desc_batch_real_rows(cuda, k, stale):
+    """K = 1..8 real rows of a cap-8 buffer, launched as K rows: the
+    rows past them zero (as the batcher pads) or holding later windows
+    (as an earlier batch leaves the device buffer), which the launch
+    must not read."""
+    part, sched, graph, rows = shard0_rows(cuda)
+    assert len(rows) >= 9
+    idx = torch.arange(sched.chunk_shape, dtype=torch.int32, device=cuda)
+    batch = stale_batch(rows, k, rows[:k - 9:-1] if stale else ())
+    hold_batch(graph, batch.to(cuda), idx, "none", part.space.search_iters,
+               sched.desc_iters, real=k)
+
+
+@pytest.mark.parametrize("orient", ["none", "degree"])
+@pytest.mark.parametrize("end", ["mid_tile", "tile_boundary"])
+def test_desc_batch_last_window(cuda, end, orient):
+    """A shard's last window, whose valid count ends mid-tile (lanes of
+    one tile past it, tiles after it with none) or exactly on a tile
+    boundary, alone and behind two full windows of 5 tiles each."""
+    g = rt.paper_workload("orkut", 1000, 20.0, seed=0)
+    chunk = 5 * BLOCK_ITEMS
+    ck = rt.PlanChunker(g, chunk, orient=orient)
+    last = 2 * BLOCK_ITEMS + (1234 if end == "mid_tile" else 0)
+    rows = [descriptor_window(ck.space.offsets, lo, hi, ck.desc_shape,
+                              ck.num_anchors).device_words()
+            for lo, hi in ((0, chunk), (chunk, 2 * chunk),
+                           (2 * chunk, 2 * chunk + last))]
+    assert int(rows[2][0]) == last
+    idx = torch.arange(chunk, dtype=torch.int32, device=cuda)
+    graph = graph_on(ck, cuda)
+    iters = (ck.space.search_iters, ck.desc_iters)
+    hold_batch(graph, stale_batch(rows[2:], 1, rows[:2]).to(cuda), idx,
+               orient, *iters, real=1)
+    hold_batch(graph, stale_batch(rows, 3, rows).to(cuda), idx, orient,
+               *iters, real=3)
+
+
+@pytest.mark.parametrize("layout", ["permuted", "shifted", "padded"])
+def test_desc_batch_scattered_idx(cuda, layout):
+    """An index array that is no run -- permuted, shifted up by 5 (its
+    top lanes past every valid count) or in order with its last 37 lanes
+    IDX_PAD -- takes the per-lane loads in every row."""
+    part, sched, graph, rows = shard0_rows(cuda)
+    order = np.arange(sched.chunk_shape, dtype=np.int64)
+    padded = order.copy()
+    padded[-37:] = ops.IDX_PAD
+    idx = {"permuted": np.random.default_rng(3).permutation(order),
+           "shifted": order + 5, "padded": padded}[layout]
+    idx = torch.from_numpy(idx.astype(np.int32)).to(cuda)
+    batch = stale_batch(rows, 5, rows[5:8]).to(cuda)
+    hold_batch(graph, batch, idx, "none", part.space.search_iters,
+               sched.desc_iters, real=5)
+
+
+@pytest.mark.parametrize("max_items", [1, 2, 3, 4, 5])
+def test_desc_batch_2d_tiles_real_rows(cuda, max_items):
+    """2D tiles at budgets of 1-5 items, both orients: each batch as the
+    batcher builds it, launched on its real rows with the rows past them
+    holding the tile's previous batch, as the device buffer would."""
+    g = star_with_pendants()
+    for orient in ("none", "degree"):
+        part, sched = shard_schedule(g, max_items, orient, mesh=(2, 2))
+        arrays = rt.stacked_device_arrays(part.shards)
+        idx = torch.arange(sched.chunk_shape, dtype=torch.int32,
+                           device=cuda)
+        words = 1 + 3 * sched.desc_shape + sched.num_anchors
+        for s in range(len(part.shards)):
+            graph = tuple(torch.from_numpy(a[s]).to(cuda) for a in arrays)
+            rows = (sched.descriptors(s, j).device_words()
+                    for j in range(sched.steps_for(s)))
+            before = np.zeros((4, words), np.int32)
+            for buf, real in rt.WindowBatcher(4, words).wrap(rows):
+                batch = buf.copy()
+                batch[real:] = before[real:]
+                hold_batch(graph, torch.from_numpy(batch).to(cuda), idx,
+                           orient, part.space.search_iters,
+                           sched.desc_iters, real=real)
+                before = batch
+
+
+def test_desc_batch_refuses_bad_real_counts(cuda):
+    """A real count of 0, past the buffer's rows, or not an integer
+    raises before any launch."""
+    part, sched, graph, rows = shard0_rows(cuda, max_items=40 * 4096)
+    idx = torch.arange(sched.chunk_shape, dtype=torch.int32, device=cuda)
+    batch = torch.from_numpy(np.stack(rows[:2])).to(cuda)
+    args = (part.space.search_iters, sched.desc_iters, "none", True)
+    before = ops.fused_census_desc_partials_batch.launches
+    for bad in (0, -1, 3, 1.5, True):
+        with pytest.raises(ValueError, match="real windows"):
+            ops.fused_census_desc_partials_batch(*graph, batch, idx, *args,
+                                                 real=bad)
+    assert ops.fused_census_desc_partials_batch.launches == before
+
+
+def test_partial_batches_on_card_match_cpu(cuda):
+    """A 1D async run whose 4 shards hold 1, 2, 3 and 5 windows (a
+    megastep cap of 5: partial batches on every shard but one) on the
+    card against the CPU, both orients: equal censuses and stats, one
+    launch per dispatch, each of its batch's real rows only."""
+    from torch_partition_cases import windows_owner
+    g = rt.paper_workload("orkut", 600, 12.0, seed=4)
+    for orient in ("none", "degree"):
+        space = rt.pair_space(g, orient=orient)
+        owner, max_items = windows_owner(space)
+        part = rt.partition_graph(num_shards=4, space=space, owner=owner)
+        runs = []
+        for devices in (rt.default_devices(4), rt.default_devices(4, "cpu")):
+            ops.reset_launch_counts()
+            eng = rt.CensusEngine(devices=devices, backend="fused",
+                                  partition=True, schedule="async")
+            runs.append((eng.run(g, max_items=max_items, part=part),
+                         eng.stats,
+                         ops.fused_census_desc_partials_batch.launches))
+        (got, st, launches), (want, cpu_st, _) = runs
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, rt.census_batagelj_mrvar(g))
+        assert st.shard_steps == cpu_st.shard_steps == [1, 2, 3, 5]
+        for field in ("items", "shard_items", "plan_upload_bytes_total",
+                      "dispatch_batch_limit", "chunks"):
+            assert getattr(st, field) == getattr(cpu_st, field), field
+        assert sorted(st.chunk_items) == sorted(cpu_st.chunk_items)
+        assert launches == st.dispatches_total > 0
 
 
 @pytest.mark.parametrize("schedule, mesh", [
