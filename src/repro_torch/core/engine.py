@@ -67,11 +67,11 @@ restart failed or stalled window producers and journal landed windows
 for :meth:`CensusEngine.resume`; sessions retry on their own devices.
 Only injected faults and partials that fail validation are retried.
 
-Host phases are marked as ``torch.profiler`` ranges, read from a trace of
-a run (``chip_smoke.py`` does): ``census.plan`` (pair space, bases and
-window shapes), ``census.partition`` (a partitioned run's pair space, LPT
-and shard extraction) and ``census.window`` (one window's descriptors or
-item words).  Outside a profiler a range costs a few microseconds.
+Host phases are :func:`repro_torch.core.spans.span` ranges named
+``census.*`` (:mod:`repro_torch.core.spans` lists them): a trace of a run
+shows each, and every host-seconds field of :class:`EngineStats` is the
+sum of one span's durations.  Outside a profiler a span costs a few
+microseconds.
 """
 
 from __future__ import annotations
@@ -85,7 +85,6 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch.core.census import (
     BACKENDS, assemble_census, assemble_counts, desc_batch_partials_fn,
@@ -108,6 +107,9 @@ from repro_torch.core.planner import (
     emit_items_for_pairs, global_bases, iter_descriptor_windows,
     max_pairs_per_window, num_desc_anchors, pad_and_pack, pair_space,
     postprune_pair_counts, split_device_words)
+from repro_torch.core.spans import (
+    EMIT, GRAPH, INSTALL, MERGE, PAIR, PARTITION, PLAN, UPLOAD, WAIT,
+    WINDOW, span, spanned)
 
 #: work-item emission modes: ``device`` streams O(pairs) descriptors and
 #: expands pairs→items on the device (the default); ``host`` materializes
@@ -313,7 +315,11 @@ class EngineStats:
     #: host→device plan bytes of the REAL windows over the whole run,
     #: summed across devices and dispatches; masked padding that was
     #: shipped (megabatch rows past the real windows under async, empty
-    #: windows under lock-step) is ``plan_pad_bytes_total``
+    #: windows under lock-step) is ``plan_pad_bytes_total``.  Runs that
+    #: are not partitioned, and sessions, count the bytes their
+    #: dispatches copied (a retried dispatch copies again; a prebuilt
+    #: plan on one device has no dispatch and counts 0), where the JAX
+    #: package leaves 0
     plan_upload_bytes_total: int = 0
     plan_pad_bytes_total: int = 0
     #: dispatches issued for the run's windows: one megastep launch per
@@ -337,10 +343,13 @@ class EngineStats:
     retired_devices: list = field(default_factory=list)
     #: windows restored from a checkpoint journal instead of re-executed
     resumed_windows: int = 0
-    #: session host walltime by phase: pair-space maintenance (rebuild,
-    #: or index edit + affected-pair discovery when ``indexed``), the
-    #: ``apply_delta`` CSR edit, and work emission (items or descriptor
-    #: windows, measured inside the dispatch loop, device waits excluded)
+    #: session host walltime by phase, each the sum of one span
+    #: (:mod:`repro_torch.core.spans`): pair-space maintenance (rebuild,
+    #: or index edit + affected-pair discovery when ``indexed``;
+    #: ``census.session.pair``), the ``apply_delta`` CSR edit
+    #: (``census.session.merge``), and work emission (items or descriptor
+    #: windows and their words, each ``next()`` of the dispatch loop's
+    #: stream, device waits excluded; ``census.session.emit``)
     host_pair_seconds: float = 0.0
     host_merge_seconds: float = 0.0
     host_emit_seconds: float = 0.0
@@ -348,8 +357,12 @@ class EngineStats:
     #: :class:`~repro_torch.core.pair_index.PairSpaceIndex`
     indexed: bool = False
     #: partitioned runs: host walltime of the pair space, the LPT and the
-    #: shard extraction (the ``census.partition`` range)
+    #: shard extraction (the ``census.partition`` span)
     host_partition_seconds: float = 0.0
+    #: sessions: host walltime writing the resident graph buffers, their
+    #: padding and copies (the ``census.session.install`` span); the
+    #: JAX package has no such field
+    host_install_seconds: float = 0.0
 
     @property
     def plan_host_seconds(self) -> float:
@@ -406,6 +419,7 @@ class EngineStats:
             part += (f" host[pair={self.host_pair_seconds * 1e3:.2f}ms"
                      f" merge={self.host_merge_seconds * 1e3:.2f}ms"
                      f" emit={self.host_emit_seconds * 1e3:.2f}ms"
+                     f" install={self.host_install_seconds * 1e3:.2f}ms"
                      f"{' indexed' if self.indexed else ''}]")
         return (f"{self.backend} [{mode} emit={self.emit}] "
                 f"ndev={self.ndev} "
@@ -532,6 +546,12 @@ class _Pipeline:
     a launch (never by an attempt that failed before it) and freed when
     its dispatch lands, so the ring must exceed the dispatches in
     flight.  On the CPU everything is synchronous.
+
+    Host time is spanned: ``census.upload`` around each host copy and
+    its enqueue, ``census.wait`` around each block on a device event (a
+    buffer's last copy, a dispatch's partials).  On the CPU the launch
+    runs in place, the upload hands over a view and the wait is empty.
+    :attr:`uploaded` counts the bytes handed to the device.
     """
 
     def __init__(self, device: torch.device, shape, *, stream=None,
@@ -539,6 +559,8 @@ class _Pipeline:
         self.device = device
         self.cuda = device.type == "cuda"
         self.rows = rows
+        #: bytes of ``words`` that :meth:`submit` handed to the device
+        self.uploaded = 0
         if not self.cuda:
             return
         self.stream = (stream if stream is not None
@@ -573,25 +595,31 @@ class _Pipeline:
         if fire is not None:
             fire("upload")
         extra = () if real is None else (real,)
+        rows = slice(None) if real is None else slice(0, real)
         if not self.cuda:
+            with span(UPLOAD):
+                device_words = torch.from_numpy(words)
+                self.uploaded += words[rows].nbytes
             if fire is not None:
                 fire("dispatch")
-            return launch(torch.from_numpy(words), *extra)
+            return launch(device_words, *extra)
         k = self.count
         self.count += 1
         slot = k % 2
         if self.copied[slot] is not None:
-            self.copied[slot].synchronize()
-        rows = slice(None) if real is None else slice(0, real)
-        self.host_in[slot][rows].numpy()[...] = words[rows]
-        copied = torch.cuda.Event()
-        with torch.cuda.stream(self.copy_stream):
-            if self.read[slot] is not None:
-                self.copy_stream.wait_event(self.read[slot])
-            self.dev_in[slot][rows].copy_(self.host_in[slot][rows],
-                                          non_blocking=True)
-            copied.record(self.copy_stream)
-        self.copied[slot] = copied
+            with span(WAIT):
+                self.copied[slot].synchronize()
+        with span(UPLOAD):
+            self.host_in[slot][rows].numpy()[...] = words[rows]
+            copied = torch.cuda.Event()
+            with torch.cuda.stream(self.copy_stream):
+                if self.read[slot] is not None:
+                    self.copy_stream.wait_event(self.read[slot])
+                self.dev_in[slot][rows].copy_(self.host_in[slot][rows],
+                                              non_blocking=True)
+                copied.record(self.copy_stream)
+            self.copied[slot] = copied
+            self.uploaded += words[rows].nbytes
         if fire is not None:
             fire("dispatch")
         r = self._take_slot()
@@ -630,25 +658,46 @@ class _Pipeline:
         finds the ring free."""
         if not self.cuda:
             return
-        for r, busy in enumerate(self.busy):
-            if busy:
-                self.done[r].synchronize()
-                self.busy[r] = False
+        with span(WAIT):
+            for r, busy in enumerate(self.busy):
+                if busy:
+                    self.done[r].synchronize()
+                    self.busy[r] = False
 
     def land(self, ticket) -> tuple[np.ndarray, np.ndarray]:
         """Wait for a submitted dispatch; its partials as int64 arrays,
         ``(rows, 64)`` and ``(rows, lanes)``."""
+        with span(WAIT):
+            if self.cuda:
+                self.done[ticket[0]].synchronize()
         if not self.cuda:
             hist, inter = ticket
             return (hist.reshape(self.rows, 64).numpy().astype(np.int64),
                     inter.reshape(self.rows, -1).numpy().astype(np.int64))
         r, lanes = ticket
-        self.done[r].synchronize()
         self.busy[r] = False
         out = self.host_out[r].numpy().astype(np.int64)
         n = self.rows * 64
         return (out[:n].reshape(self.rows, 64),
                 out[n:n + self.rows * lanes].reshape(self.rows, lanes))
+
+
+def _uploaded(pipes) -> int:
+    """The bytes ``pipes`` handed their devices since last asked; their
+    counters restart at 0."""
+    total = sum(pipe.uploaded for pipe in pipes)
+    for pipe in pipes:
+        pipe.uploaded = 0
+    return total
+
+
+def _host_seconds(spans: dict) -> dict:
+    """A session's :class:`EngineStats` host-seconds fields from its span
+    totals."""
+    return dict(host_pair_seconds=spans.get(PAIR, 0.0),
+                host_merge_seconds=spans.get(MERGE, 0.0),
+                host_emit_seconds=spans.get(EMIT, 0.0),
+                host_install_seconds=spans.get(INSTALL, 0.0))
 
 
 def _dispatch(pipes, launches, steps, landed=None, session=None
@@ -925,17 +974,19 @@ class CensusEngine:
                                    np.zeros(2, np.int64))
         step = partials_fn(self.backend, plan.search_iters)
         if self.devices is None:
-            arrays = self._upload_graph((plan.indptr, plan.packed,
-                                         plan.pair_u, plan.pair_v,
-                                         plan.pair_code, plan.item_sp,
-                                         plan.item_pv))
+            with span(GRAPH):
+                arrays = self._upload_graph((plan.indptr, plan.packed,
+                                             plan.pair_u, plan.pair_v,
+                                             plan.pair_code, plan.item_sp,
+                                             plan.item_pv))
             hist64, inter = step(*arrays)
             return assemble_census(plan, hist64.cpu().numpy(),
                                    inter.cpu().numpy())
         lanes = self._lanes()
-        graph = self._replicate(lanes, (plan.indptr, plan.packed,
-                                        plan.pair_u, plan.pair_v,
-                                        plan.pair_code))
+        with span(GRAPH):
+            graph = self._replicate(lanes, (plan.indptr, plan.packed,
+                                            plan.pair_u, plan.pair_v,
+                                            plan.pair_code))
         per = wp // ndev
         pipes = [_Pipeline(ld.device, (2 * per,), stream=ld.stream)
                  for ld in lanes]
@@ -945,6 +996,7 @@ class CensusEngine:
                                    plan.item_pv[d * per:(d + 1) * per]])
                    for d in range(ndev)]
         hist, inter = _dispatch(pipes, launches, [buffers])
+        self.stats.plan_upload_bytes_total = _uploaded(pipes)
         return assemble_census(plan, hist, inter)
 
     def run(self, g: CompactDigraph, *, max_items: int | None = None,
@@ -996,7 +1048,7 @@ class CensusEngine:
                                          progress=progress, emit=emit,
                                          schedule=schedule, part=part,
                                          checkpoint=checkpoint)
-        with record_function("census.plan"):
+        with span(PLAN):
             if emit == "host" and max_items is None:
                 plan = build_plan(g, pad_to=self.ndev, orient=orient,
                                   prune_self=prune_self)
@@ -1159,7 +1211,8 @@ class CensusEngine:
             return assemble_counts(space.n, 0, 0, np.zeros(64, np.int64),
                                    np.zeros(2, np.int64))
         lanes = self._lanes()
-        graph = self._replicate(lanes, chunker.device_arrays())
+        with span(GRAPH):
+            graph = self._replicate(lanes, chunker.device_arrays())
         step = partials_fn(self.backend, space.search_iters)
         pipes = [_Pipeline(ld.device, (2 * per,), stream=ld.stream)
                  for ld in lanes]
@@ -1171,7 +1224,7 @@ class CensusEngine:
         def steps():
             nonlocal base_asym, base_mut
             for k in range(chunker.num_chunks):
-                with record_function("census.window"):
+                with span(WINDOW):
                     chunk = chunker.chunk(k)
                 base_asym += chunk.base_asym
                 base_mut += chunk.base_mut
@@ -1193,6 +1246,7 @@ class CensusEngine:
         st.chunk_items = chunk_items
         st.items = int(sum(chunk_items))
         st.monolithic_plan_bytes = ITEM_BYTES * (-(-st.items // ndev) * ndev)
+        st.plan_upload_bytes_total = _uploaded(pipes)
         return assemble_counts(space.n, base_asym, base_mut,
                                hist_acc, inter_acc)
 
@@ -1223,10 +1277,11 @@ class CensusEngine:
             return assemble_counts(space.n, 0, 0, np.zeros(64, np.int64),
                                    np.zeros(2, np.int64))
         lanes = self._lanes()
-        graph = self._replicate(lanes, chunker.device_arrays())
-        # the flat item-index space: made on each device once, reused by
-        # every chunk; device d expands its contiguous slice of it
-        idx = self._flat_index(lanes, chunker.chunk_shape)
+        with span(GRAPH):
+            graph = self._replicate(lanes, chunker.device_arrays())
+            # the flat item-index space: made on each device once, reused
+            # by every chunk; device d expands its contiguous slice of it
+            idx = self._flat_index(lanes, chunker.chunk_shape)
         per = chunker.chunk_shape // ndev
         step = desc_partials_fn(self.backend, space.search_iters,
                                 chunker.desc_iters, space.orient,
@@ -1247,7 +1302,7 @@ class CensusEngine:
                 ba, bm = chunker.bases(k)
                 base_asym += ba
                 base_mut += bm
-                with record_function("census.window"):
+                with span(WINDOW):
                     host_words = chunker.descriptors(k).device_words()
                 yield [host_words] * ndev
 
@@ -1262,6 +1317,7 @@ class CensusEngine:
         st.chunk_items = chunk_items
         st.items = int(sum(chunk_items))
         st.monolithic_plan_bytes = ITEM_BYTES * (-(-st.items // ndev) * ndev)
+        st.plan_upload_bytes_total = _uploaded(pipes)
         return assemble_counts(space.n, base_asym, base_mut,
                                hist_acc, inter_acc)
 
@@ -1281,8 +1337,8 @@ class CensusEngine:
         replicated and single-device paths for every backend, orient,
         emit and schedule (the relabeling is order-preserving, the pair
         partition is exact, and the partials are integer sums)."""
-        t0 = time.perf_counter()
-        with record_function("census.partition"):
+        spans: dict = {}
+        with span(PARTITION, spans):
             if part is None:
                 space = pair_space(g, orient=orient, prune_self=prune_self)
                 part = (partition_graph_2d(space=space,
@@ -1301,8 +1357,7 @@ class CensusEngine:
                     f"prebuilt partition mesh "
                     f"{getattr(part, 'mesh_shape', None)} does not match "
                     f"partition_2d={self.partition_2d}")
-        partition_s = time.perf_counter() - t0
-        with record_function("census.plan"):
+        with span(PLAN):
             sched = ShardSchedule([sh.space for sh in part.shards],
                                   max_items, self.ndev,
                                   mesh_shape=getattr(part, "mesh_shape",
@@ -1317,7 +1372,7 @@ class CensusEngine:
         else:
             census = self._run_partitioned_lockstep(part, sched, progress,
                                                     emit, max_items, upload)
-        self.stats.host_partition_seconds = partition_s
+        self.stats.host_partition_seconds = spans[PARTITION]
         return census
 
     def _shard_graphs(self, arrs) -> list[tuple[torch.Tensor, ...]]:
@@ -1373,11 +1428,13 @@ class CensusEngine:
                                    np.zeros(64, np.int64),
                                    np.zeros(2, np.int64))
         lanes = self.devices
-        graphs = self._shard_graphs(stacked_device_arrays(part.shards))
-        chunk_items: list[int] = []
         cs = sched.chunk_shape
+        with span(GRAPH):
+            graphs = self._shard_graphs(stacked_device_arrays(part.shards))
+            if emit == "device":
+                idx = self._flat_index(lanes, cs)
+        chunk_items: list[int] = []
         if emit == "device":
-            idx = self._flat_index(lanes, cs)
             step = desc_partials_fn(self.backend, space.search_iters,
                                     sched.desc_iters, space.orient,
                                     space.prune_self)
@@ -1390,7 +1447,7 @@ class CensusEngine:
 
             def steps():
                 for k in range(sched.num_steps):
-                    with record_function("census.window"):
+                    with span(WINDOW):
                         words = sched.step_words(k)
                     yield list(words)
 
@@ -1410,7 +1467,7 @@ class CensusEngine:
 
             def steps():
                 for k in range(sched.num_steps):
-                    with record_function("census.window"):
+                    with span(WINDOW):
                         item_sp, item_pv, nums = sched.step_items(k)
                     chunk_items.append(int(sum(nums)))
                     if progress is not None:
@@ -1519,13 +1576,15 @@ class CensusEngine:
         lanes = self.devices
         # the host copies in ``arrs`` stay alive as the source of a
         # failover onto another physical device
-        arrs = stacked_device_arrays(part.shards)
-        graphs = {(s, lanes[s].device): g
-                  for s, g in enumerate(self._shard_graphs(arrs))}
         cs = sched.chunk_shape
+        with span(GRAPH):
+            arrs = stacked_device_arrays(part.shards)
+            graphs = {(s, lanes[s].device): g
+                      for s, g in enumerate(self._shard_graphs(arrs))}
+            if emit == "device":
+                idx = self._flat_index(lanes, cs)
         batcher = None
         if emit == "device":
-            idx = self._flat_index(lanes, cs)
             step = desc_batch_partials_fn(self.backend, space.search_iters,
                                           sched.desc_iters, space.orient,
                                           space.prune_self)
@@ -1597,9 +1656,10 @@ class CensusEngine:
                 ld = lanes[d]
                 key = (s, ld.device)
                 if key not in graphs:
-                    graphs[key] = self._upload_graph([a[s] for a in arrs],
-                                                     ld.device)
-                    _after_uploads([ld])
+                    with span(GRAPH):
+                        graphs[key] = self._upload_graph(
+                            [a[s] for a in arrs], ld.device)
+                        _after_uploads([ld])
                 routes[(s, d)] = (
                     _Pipeline(ld.device, shape, stream=ld.stream,
                               rows=rows, ring=limit + 2),
@@ -1796,27 +1856,6 @@ def _pad_i32(a: np.ndarray, cap: int) -> np.ndarray:
     return out
 
 
-class _TimedIter:
-    """Wrap an iterator, accumulating the walltime spent *inside*
-    ``next()`` — the host-side plan/window construction cost of a lazy
-    emission stream, excluding the consumer's device-wait time (the
-    ``host_emit_seconds`` stats bucket)."""
-
-    def __init__(self, it):
-        self._it = iter(it)
-        self.seconds = 0.0
-
-    def __iter__(self):
-        return self
-
-    def __next__(self):
-        t0 = time.perf_counter()
-        try:
-            return next(self._it)
-        finally:
-            self.seconds += time.perf_counter() - t0
-
-
 def _dispatch_retrying_session(session, thunk):
     """Session-side dispatch retry: call ``thunk`` (upload + launch, with
     the session's fault-injection hooks inside) under the engine's retry
@@ -1990,7 +2029,9 @@ class EngineSession:
         #: update instead of rebuilding the O(P) pair space
         self.use_index = bool(index)
         self._pair_index: PairSpaceIndex | None = None
-        self._t_pair = self._t_merge = self._t_emit = 0.0
+        #: host seconds by span name since the last stats
+        #: (:mod:`repro_torch.core.spans`)
+        self._spans: dict = {}
         #: pinned row-search depth: any row has < n entries
         self.search_iters = max(1, int(np.ceil(np.log2(max(g.n, 2)))))
         self._cap_entries = 0
@@ -2107,15 +2148,14 @@ class EngineSession:
         the padded device arrays, regrowing them when they are full."""
         self._g = g
         if space is None:
-            t0 = time.perf_counter()
-            if self.use_index:
-                self._pair_index = PairSpaceIndex(
-                    g, orient=self.orient, prune_self=self.prune_self)
-                space = self._pair_index.space
-            else:
-                space = pair_space(g, orient=self.orient,
-                                   prune_self=self.prune_self)
-            self._t_pair += time.perf_counter() - t0
+            with span(PAIR, self._spans):
+                if self.use_index:
+                    self._pair_index = PairSpaceIndex(
+                        g, orient=self.orient, prune_self=self.prune_self)
+                    space = self._pair_index.space
+                else:
+                    space = pair_space(g, orient=self.orient,
+                                       prune_self=self.prune_self)
         self._space = space
         self._full_items: int | None = None   # lazy per-install stat
         if self.chunk_shape is None:
@@ -2123,28 +2163,30 @@ class EngineSession:
                       else max(space.num_items_preprune, 1))
             self.chunk_shape = _guard_chunk_shape(
                 -(-max(int(budget), 1) // self.ndev) * self.ndev)
-        cap_entries = self._grown(self._cap_entries, space.packed.shape[0])
-        cap_pairs = self._grown(self._cap_pairs, space.num_pairs)
-        if not self._dev or (cap_entries, cap_pairs) != (
-                self._cap_entries, self._cap_pairs):
-            self._cap_entries, self._cap_pairs = cap_entries, cap_pairs
-            self._dev = {}
-            for ld in self._lanes:
-                if ld.device not in self._dev:
-                    self._dev[ld.device] = tuple(
-                        torch.zeros(size, dtype=torch.int32,
-                                    device=ld.device)
-                        for size in (self.n + 1, cap_entries, cap_pairs,
-                                     cap_pairs, cap_pairs))
-        host = (space.indptr.astype(np.int32),
-                _pad_i32(space.packed, cap_entries),
-                _pad_i32(space.pair_u, cap_pairs),
-                _pad_i32(space.pair_v, cap_pairs),
-                _pad_i32(space.pair_code, cap_pairs))
-        for bufs in self._dev.values():
-            for dev, arr in zip(bufs, host):
-                dev.copy_(torch.from_numpy(arr))
-        _after_uploads(self._lanes)
+        with span(INSTALL, self._spans):
+            cap_entries = self._grown(self._cap_entries,
+                                      space.packed.shape[0])
+            cap_pairs = self._grown(self._cap_pairs, space.num_pairs)
+            if not self._dev or (cap_entries, cap_pairs) != (
+                    self._cap_entries, self._cap_pairs):
+                self._cap_entries, self._cap_pairs = cap_entries, cap_pairs
+                self._dev = {}
+                for ld in self._lanes:
+                    if ld.device not in self._dev:
+                        self._dev[ld.device] = tuple(
+                            torch.zeros(size, dtype=torch.int32,
+                                        device=ld.device)
+                            for size in (self.n + 1, cap_entries,
+                                         cap_pairs, cap_pairs, cap_pairs))
+            host = (space.indptr.astype(np.int32),
+                    _pad_i32(space.packed, cap_entries),
+                    _pad_i32(space.pair_u, cap_pairs),
+                    _pad_i32(space.pair_v, cap_pairs),
+                    _pad_i32(space.pair_code, cap_pairs))
+            for bufs in self._dev.values():
+                for dev, arr in zip(bufs, host):
+                    dev.copy_(torch.from_numpy(arr))
+            _after_uploads(self._lanes)
 
     def set_graph(self, g: CompactDigraph) -> None:
         """Replace the resident graph wholesale (no delta bookkeeping).
@@ -2162,8 +2204,9 @@ class EngineSession:
         """Dispatch item batches (each with at most ``chunk_shape``
         items) against the resident device graph, each device its
         contiguous slice of the packed items; empty batches are skipped
-        without a dispatch.  Returns int64 partials and the items per
-        dispatch."""
+        without a dispatch.  Drawing a batch and packing it is the
+        ``census.session.emit`` span.  Returns int64 partials and the
+        items per dispatch."""
         cs = self.chunk_shape
         per = cs // self.ndev
         chunk_items: list[int] = []
@@ -2178,7 +2221,8 @@ class EngineSession:
                                            pv[d * per:(d + 1) * per]])
                            for d in range(self.ndev)]
 
-        hist, inter = _dispatch(self._pipes, self._launches, steps(),
+        hist, inter = _dispatch(self._pipes, self._launches,
+                                spanned(steps(), EMIT, self._spans),
                                 session=self)
         return hist, inter, chunk_items
 
@@ -2188,12 +2232,14 @@ class EngineSession:
         descriptor windows (whole, to every device) against the resident
         graph and flat-index arrays.  Valid-item counts come back from
         the device (``inter`` lane 2), so the stats match host emission
-        without materializing a single item."""
+        without materializing a single item.  Building a window and its
+        words is the ``census.session.emit`` span."""
         chunk_items: list[int] = []
         hist, inter = _dispatch(
             self._pipes, self._launches,
-            ([win.device_words()] * self.ndev
-             for win in windows if win.num_preprune),
+            spanned(([win.device_words()] * self.ndev
+                     for win in windows if win.num_preprune),
+                    EMIT, self._spans),
             lambda k, inter3: chunk_items.append(int(inter3[2])),
             session=self)
         return hist, inter, chunk_items
@@ -2214,18 +2260,15 @@ class EngineSession:
         base_asym, base_mut = base_for_pairs(self._space, pair_ids)
         if self.emit == "device":
             ids = np.asarray(pair_ids, dtype=np.int64).ravel()
-            wins = _TimedIter(
+            hist, inter, chunk_items = self._run_desc_batches(
                 subset_descriptor_windows(self._space, ids,
                                           self.chunk_shape,
                                           self.desc_shape,
                                           self.num_anchors))
-            hist, inter, chunk_items = self._run_desc_batches(wins)
-            self._t_emit += wins.seconds
             return (contribution_counts(base_asym, base_mut, hist, inter),
                     int(sum(chunk_items)), chunk_items)
-        t0 = time.perf_counter()
-        items = emit_items_for_pairs(self._space, pair_ids)
-        self._t_emit += time.perf_counter() - t0
+        with span(EMIT, self._spans):
+            items = emit_items_for_pairs(self._space, pair_ids)
         num_items = int(items[0].shape[0])
         if num_items == 0:
             return (contribution_counts(base_asym, base_mut,
@@ -2268,10 +2311,9 @@ class EngineSession:
                 else ITEM_BYTES * self.chunk_shape // ndev),
             retries=self.retries,
             graph_resident_bytes=gbytes, graph_replicated_bytes=gbytes,
-            host_pair_seconds=self._t_pair,
-            host_merge_seconds=self._t_merge,
-            host_emit_seconds=self._t_emit, indexed=self.use_index)
-        self._t_pair = self._t_merge = self._t_emit = 0.0
+            plan_upload_bytes_total=_uploaded(self._pipes),
+            **_host_seconds(self._spans), indexed=self.use_index)
+        self._spans = {}
         self.engine.stats = self.stats
 
     def census(self) -> np.ndarray:
@@ -2285,17 +2327,14 @@ class EngineSession:
         w0 = space.num_items_preprune
         cs = self.chunk_shape
         if self.emit == "device":
-            wins = _TimedIter(
+            hist, inter, chunk_items = self._run_desc_batches(
                 iter_descriptor_windows(space.offsets, cs,
                                         self.desc_shape,
                                         self.num_anchors))
-            hist, inter, chunk_items = self._run_desc_batches(wins)
-            self._t_emit += wins.seconds
         else:
-            batches = _TimedIter(emit_items(space, lo, min(lo + cs, w0))
-                                 for lo in range(0, w0, cs))
-            hist, inter, chunk_items = self._run_batches(batches)
-            self._t_emit += batches.seconds
+            hist, inter, chunk_items = self._run_batches(
+                emit_items(space, lo, min(lo + cs, w0))
+                for lo in range(0, w0, cs))
         base_asym, base_mut = global_bases(space)
         self._census = assemble_counts(self.n, base_asym, base_mut,
                                        hist, inter)
@@ -2313,10 +2352,9 @@ class EngineSession:
         if self._census is None:
             raise RuntimeError(
                 "no baseline census: call census() before update()")
-        t0 = time.perf_counter()
-        g_new, delta = apply_delta(self._g, add_src, add_dst,
-                                   del_src, del_dst)
-        self._t_merge += time.perf_counter() - t0
+        with span(MERGE, self._spans):
+            g_new, delta = apply_delta(self._g, add_src, add_dst,
+                                       del_src, del_dst)
         self.last_delta = delta
         if delta.num_changed == 0:
             # nothing changed: no recount, no upload, no dispatch — the
@@ -2324,28 +2362,25 @@ class EngineSession:
             self._set_stats([], 0, self._postprune_items(), 0)
             return self._census.copy()
 
-        t0 = time.perf_counter()
-        aff_old = (self._pair_index.affected_pair_ids(delta.touched)
-                   if self.use_index
-                   else affected_pair_ids(self._space, delta.touched))
-        self._t_pair += time.perf_counter() - t0
+        with span(PAIR, self._spans):
+            aff_old = (self._pair_index.affected_pair_ids(delta.touched)
+                       if self.use_index
+                       else affected_pair_ids(self._space, delta.touched))
         # lands every window of the old graph before the install below
         # overwrites the resident buffers
         contrib_old, items_old, chunks_old = self._subset(aff_old)
         if self.use_index:
             # edit the persistent index into the new graph's pair space
             # (O(delta · log P + affected)) instead of rebuilding O(P)
-            t0 = time.perf_counter()
-            space_new = self._pair_index.apply(delta, g_new)
-            self._t_pair += time.perf_counter() - t0
+            with span(PAIR, self._spans):
+                space_new = self._pair_index.apply(delta, g_new)
             self._install(g_new, space=space_new)
         else:
             self._install(g_new)
-        t0 = time.perf_counter()
-        aff_new = (self._pair_index.affected_pair_ids(delta.touched)
-                   if self.use_index
-                   else affected_pair_ids(self._space, delta.touched))
-        self._t_pair += time.perf_counter() - t0
+        with span(PAIR, self._spans):
+            aff_new = (self._pair_index.affected_pair_ids(delta.touched)
+                       if self.use_index
+                       else affected_pair_ids(self._space, delta.touched))
         contrib_new, items_new, chunks_new = self._subset(aff_new)
         self._census = combine(self._census, contrib_old, contrib_new,
                                self.n)
@@ -2437,7 +2472,8 @@ class PartitionedEngineSession:
         #: delta-incremental host planning (see :class:`EngineSession`)
         self.use_index = bool(index)
         self._pair_index: PairSpaceIndex | None = None
-        self._t_pair = self._t_merge = self._t_emit = 0.0
+        #: host seconds by span name since the last stats
+        self._spans: dict = {}
         self._dev: list = [None] * self.ndev
         self._pipes = None
         self._install_full(g)
@@ -2498,15 +2534,14 @@ class PartitionedEngineSession:
         """(Re)partition ``g`` from scratch and make every shard
         device-resident (session open and :meth:`set_graph`)."""
         self._g = g
-        t0 = time.perf_counter()
-        if self.use_index:
-            self._pair_index = PairSpaceIndex(
-                g, orient=self.orient, prune_self=self.prune_self)
-            space = self._pair_index.space
-        else:
-            space = pair_space(g, orient=self.orient,
-                               prune_self=self.prune_self)
-        self._t_pair += time.perf_counter() - t0
+        with span(PAIR, self._spans):
+            if self.use_index:
+                self._pair_index = PairSpaceIndex(
+                    g, orient=self.orient, prune_self=self.prune_self)
+                space = self._pair_index.space
+            else:
+                space = pair_space(g, orient=self.orient,
+                                   prune_self=self.prune_self)
         self._space = space
         self._full_items: int | None = None
         part = self._make_partition(space)
@@ -2566,40 +2601,43 @@ class PartitionedEngineSession:
         """Write the listed shards' padded local arrays into their
         devices' resident buffers; a capacity growth reallocates every
         shard's buffers, so it rewrites them all.  Each written device's
-        stream is ordered after the writes."""
-        need_n = max(max(sh.graph.indptr.shape[0]
-                         for sh in self._shards), 2)
-        need_e = max(max(sh.graph.packed.shape[0]
-                         for sh in self._shards), 1)
-        need_p = max(max(sh.num_pairs for sh in self._shards), 1)
-        prev = (self._cap_n, self._cap_entries, self._cap_pairs)
-        self._cap_n = EngineSession._grown(self._cap_n, need_n)
-        self._cap_entries = EngineSession._grown(self._cap_entries,
-                                                 need_e)
-        self._cap_pairs = EngineSession._grown(self._cap_pairs, need_p)
-        caps = (self._cap_n, self._cap_entries, self._cap_pairs)
-        if prev != caps:
-            shard_ids = range(self.ndev)
-            for s, ld in enumerate(self._lanes):
-                self._dev[s] = tuple(
-                    torch.zeros(size, dtype=torch.int32, device=ld.device)
-                    for size in (self._cap_n, self._cap_entries,
-                                 self._cap_pairs, self._cap_pairs,
-                                 self._cap_pairs))
-        shard_ids = list(shard_ids)
-        for s in shard_ids:
-            sh = self._shards[s]
-            ip = np.zeros(self._cap_n, dtype=np.int32)
-            ln = sh.graph.indptr.shape[0]
-            ip[:ln] = sh.graph.indptr
-            ip[ln:] = sh.graph.indptr[-1]      # phantom empty rows
-            host = (ip, _pad_i32(sh.graph.packed, self._cap_entries),
-                    _pad_i32(sh.space.pair_u, self._cap_pairs),
-                    _pad_i32(sh.space.pair_v, self._cap_pairs),
-                    _pad_i32(sh.space.pair_code, self._cap_pairs))
-            for dev, arr in zip(self._dev[s], host):
-                dev.copy_(torch.from_numpy(arr))
-        _after_uploads([self._lanes[s] for s in shard_ids])
+        stream is ordered after the writes.  The ``census.session.install``
+        span."""
+        with span(INSTALL, self._spans):
+            need_n = max(max(sh.graph.indptr.shape[0]
+                             for sh in self._shards), 2)
+            need_e = max(max(sh.graph.packed.shape[0]
+                             for sh in self._shards), 1)
+            need_p = max(max(sh.num_pairs for sh in self._shards), 1)
+            prev = (self._cap_n, self._cap_entries, self._cap_pairs)
+            self._cap_n = EngineSession._grown(self._cap_n, need_n)
+            self._cap_entries = EngineSession._grown(self._cap_entries,
+                                                     need_e)
+            self._cap_pairs = EngineSession._grown(self._cap_pairs, need_p)
+            caps = (self._cap_n, self._cap_entries, self._cap_pairs)
+            if prev != caps:
+                shard_ids = range(self.ndev)
+                for s, ld in enumerate(self._lanes):
+                    self._dev[s] = tuple(
+                        torch.zeros(size, dtype=torch.int32,
+                                    device=ld.device)
+                        for size in (self._cap_n, self._cap_entries,
+                                     self._cap_pairs, self._cap_pairs,
+                                     self._cap_pairs))
+            shard_ids = list(shard_ids)
+            for s in shard_ids:
+                sh = self._shards[s]
+                ip = np.zeros(self._cap_n, dtype=np.int32)
+                ln = sh.graph.indptr.shape[0]
+                ip[:ln] = sh.graph.indptr
+                ip[ln:] = sh.graph.indptr[-1]      # phantom empty rows
+                host = (ip, _pad_i32(sh.graph.packed, self._cap_entries),
+                        _pad_i32(sh.space.pair_u, self._cap_pairs),
+                        _pad_i32(sh.space.pair_v, self._cap_pairs),
+                        _pad_i32(sh.space.pair_code, self._cap_pairs))
+                for dev, arr in zip(self._dev[s], host):
+                    dev.copy_(torch.from_numpy(arr))
+            _after_uploads([self._lanes[s] for s in shard_ids])
 
     def set_graph(self, g: CompactDigraph) -> None:
         """Replace the resident graph wholesale: fresh LPT partition,
@@ -2669,54 +2707,43 @@ class PartitionedEngineSession:
         the same window (the landing-side retry handle), ``num`` is the
         item count under host emission and ``None`` under device emission
         (counts come back from the device).  Dispatch-time faults are
-        retried here under the engine's budget."""
+        retried here under the engine's budget.  Building a window or a
+        batch and its words is the ``census.session.emit`` span."""
         sp = self._shards[s].space
         cs = self.chunk_shape
         if self.emit == "device":
-            wins = _TimedIter(
-                iter_descriptor_windows(sp.offsets, cs,
-                                        self.desc_shape,
-                                        self.num_anchors)
-                if pair_ids is None else
-                subset_descriptor_windows(sp, pair_ids, cs,
-                                          self.desc_shape,
-                                          self.num_anchors))
-            for win in wins:
-                if win.num_preprune == 0:
-                    continue
-
-                def redo(words=win.device_words()):
-                    return _dispatch_retrying_session(
-                        self, lambda: self._dispatch(s, words))
-
-                ticket, poisoned = redo()
-                yield ticket, poisoned, redo, None
-            self._t_emit += wins.seconds
-            return
-        if pair_ids is None:
-            w0 = sp.num_items_preprune
-            batches = _TimedIter(emit_items(sp, lo, min(lo + cs, w0))
-                                 for lo in range(0, w0, cs))
+            wins = (iter_descriptor_windows(sp.offsets, cs,
+                                            self.desc_shape,
+                                            self.num_anchors)
+                    if pair_ids is None else
+                    subset_descriptor_windows(sp, pair_ids, cs,
+                                              self.desc_shape,
+                                              self.num_anchors))
+            stream = ((None, win.device_words())
+                      for win in wins if win.num_preprune)
         else:
-            t0 = time.perf_counter()
-            items = emit_items_for_pairs(sp, pair_ids)
-            self._t_emit += time.perf_counter() - t0
-            batches = _TimedIter(
-                (items[0][lo:lo + cs], items[1][lo:lo + cs],
-                 items[2][lo:lo + cs])
-                for lo in range(0, max(int(items[0].shape[0]), 1), cs))
-        for batch in batches:
-            num = int(batch[0].shape[0])
-            if num == 0:
-                continue
+            if pair_ids is None:
+                w0 = sp.num_items_preprune
+                batches = (emit_items(sp, lo, min(lo + cs, w0))
+                           for lo in range(0, w0, cs))
+            else:
+                with span(EMIT, self._spans):
+                    items = emit_items_for_pairs(sp, pair_ids)
+                batches = (
+                    (items[0][lo:lo + cs], items[1][lo:lo + cs],
+                     items[2][lo:lo + cs])
+                    for lo in range(0, max(int(items[0].shape[0]), 1), cs))
+            stream = ((int(batch[0].shape[0]),
+                       np.concatenate(pad_and_pack(*batch, cs)))
+                      for batch in batches if batch[0].shape[0])
+        for num, words in spanned(stream, EMIT, self._spans):
 
-            def redo(words=np.concatenate(pad_and_pack(*batch, cs))):
+            def redo(words=words):
                 return _dispatch_retrying_session(
                     self, lambda: self._dispatch(s, words))
 
             ticket, poisoned = redo()
             yield ticket, poisoned, redo, num
-        self._t_emit += batches.seconds
 
     def _job_stream(self, s: int, pair_ids=None):
         """Shard ``s``'s jobs tagged with their shard id (a bound helper,
@@ -2795,10 +2822,9 @@ class PartitionedEngineSession:
             graph_resident_bytes=max(sh.resident_bytes
                                      for sh in self._shards),
             graph_replicated_bytes=replicated_graph_bytes(self._space),
-            host_pair_seconds=self._t_pair,
-            host_merge_seconds=self._t_merge,
-            host_emit_seconds=self._t_emit, indexed=self.use_index)
-        self._t_pair = self._t_merge = self._t_emit = 0.0
+            plan_upload_bytes_total=_uploaded(self._pipes),
+            **_host_seconds(self._spans), indexed=self.use_index)
+        self._spans = {}
         self.engine.stats = self.stats
 
     def census(self) -> np.ndarray:
@@ -2884,10 +2910,9 @@ class PartitionedEngineSession:
         if self._census is None:
             raise RuntimeError(
                 "no baseline census: call census() before update()")
-        t0 = time.perf_counter()
-        g_new, delta = apply_delta(self._g, add_src, add_dst,
-                                   del_src, del_dst)
-        self._t_merge += time.perf_counter() - t0
+        with span(MERGE, self._spans):
+            g_new, delta = apply_delta(self._g, add_src, add_dst,
+                                       del_src, del_dst)
         self.last_delta = delta
         if delta.num_changed == 0:
             self._set_stats([], [0] * self.ndev, 0,
@@ -2896,13 +2921,13 @@ class PartitionedEngineSession:
 
         n = self.n
         space_old = self._space
-        t0 = time.perf_counter()
-        if self.use_index:
-            aff_old = self._pair_index.affected_pair_ids(delta.touched)
-        else:
-            aff_old = affected_pair_ids(space_old, delta.touched)
-        aff_keys_old = (space_old.pair_u * n + space_old.pair_v)[aff_old]
-        self._t_pair += time.perf_counter() - t0
+        with span(PAIR, self._spans):
+            if self.use_index:
+                aff_old = self._pair_index.affected_pair_ids(delta.touched)
+            else:
+                aff_old = affected_pair_ids(space_old, delta.touched)
+            aff_keys_old = (space_old.pair_u * n
+                            + space_old.pair_v)[aff_old]
         chunk_items: list[int] = []
         shard_items = [0] * self.ndev
         touched_owner: dict[int, int] = {}
@@ -2912,20 +2937,19 @@ class PartitionedEngineSession:
 
         # ---- reassign ownership and refresh only the dirty shards
         self._g = g_new
-        t0 = time.perf_counter()
-        if self.use_index:
-            # edit the persistent index into the new pair space; its
-            # maintained keys/costs also feed the owner routing and the
-            # dirty-shard refresh below
-            space_new = self._pair_index.apply(delta, g_new)
-            key_all_new = self._pair_index.keys
-            costs_new = self._pair_index.costs
-        else:
-            space_new = pair_space(g_new, orient=self.orient,
-                                   prune_self=self.prune_self)
-            key_all_new = space_new.pair_u * n + space_new.pair_v
-            costs_new = None
-        self._t_pair += time.perf_counter() - t0
+        with span(PAIR, self._spans):
+            if self.use_index:
+                # edit the persistent index into the new pair space; its
+                # maintained keys/costs also feed the owner routing and
+                # the dirty-shard refresh below
+                space_new = self._pair_index.apply(delta, g_new)
+                key_all_new = self._pair_index.keys
+                costs_new = self._pair_index.costs
+            else:
+                space_new = pair_space(g_new, orient=self.orient,
+                                       prune_self=self.prune_self)
+                key_all_new = space_new.pair_u * n + space_new.pair_v
+                costs_new = None
         self._space = space_new
         self._full_items = None
         dkeys = delta.pair_lo * n + delta.pair_hi
@@ -2966,13 +2990,12 @@ class PartitionedEngineSession:
 
         # ---- new-side recount (owners of every affected new pair are,
         # by construction, in the refreshed dirty set)
-        t0 = time.perf_counter()
-        if self.use_index:
-            aff_new = self._pair_index.affected_pair_ids(delta.touched)
-        else:
-            aff_new = affected_pair_ids(space_new, delta.touched)
-        aff_keys_new = key_all_new[aff_new]
-        self._t_pair += time.perf_counter() - t0
+        with span(PAIR, self._spans):
+            if self.use_index:
+                aff_new = self._pair_index.affected_pair_ids(delta.touched)
+            else:
+                aff_new = affected_pair_ids(space_new, delta.touched)
+            aff_keys_new = key_all_new[aff_new]
         contrib_new, _ = self._recount(
             aff_keys_new, chunk_items, shard_items)
         self._census = combine(self._census, contrib_old, contrib_new,

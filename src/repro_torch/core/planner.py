@@ -35,7 +35,8 @@ Two refinements live here:
   (``w <= v`` for N(u)-side items, ``w <= u`` for N(v)-side items) are
   dropped, with bit-identical censuses.
 
-Host-side numpy, framework-free.
+Host-side numpy; the one torch call is the profiler range around a
+window's anchor table (:data:`repro_torch.core.spans.ANCHORS`).
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from repro_torch.core.digraph import CompactDigraph, canonical_pairs
+from repro_torch.core.spans import ANCHORS, span
 
 #: bit 2 of ``pair_code`` in a degree-oriented plan: which side of the pair
 #: (0 = N(u), 1 = N(v)) witnesses the intersection count for the dyadic
@@ -490,10 +492,11 @@ def descriptor_window(offsets: np.ndarray, lo: int, hi: int,
         cum = np.maximum(starts - lo, 0)
         dc[:nd] = cum
         dw[:nd] = np.maximum(lo - starts, 0)
-        grid = (np.arange(num_anchors, dtype=np.int64)
-                * DESC_ANCHOR_STRIDE)
-        anchors[:] = np.clip(
-            np.searchsorted(cum, grid, side="right") - 1, 0, nd - 1)
+        with span(ANCHORS):
+            grid = (np.arange(num_anchors, dtype=np.int64)
+                    * DESC_ANCHOR_STRIDE)
+            anchors[:] = np.clip(
+                np.searchsorted(cum, grid, side="right") - 1, 0, nd - 1)
     return DescriptorWindow(start=lo, stop=hi, num_preprune=hi - lo,
                             num_descs=nd, desc_pair=dp, desc_cum=dc,
                             desc_within0=dw, anchors=anchors)

@@ -31,6 +31,7 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.convert, repro_torch.core.distributed, "
             "repro_torch.core.partition, repro_torch.core.faults, "
             "repro_torch.core.plan_stream, repro_torch.core.engine, "
+            "repro_torch.core.spans, "
             "repro_torch.core.temporal, repro_torch.analysis, "
             "repro_torch.analysis.report, repro_torch.configs, "
             "repro_torch.configs.registry, repro_torch.models.common, "
@@ -68,7 +69,8 @@ def test_port_sources_exist():
                 "core/plan_stream.py", "core/census.py", "core/engine.py",
                 "core/incremental.py", "core/pair_index.py",
                 "core/partition.py", "core/distributed.py",
-                "core/faults.py", "core/temporal.py", "core/__init__.py",
+                "core/faults.py", "core/temporal.py", "core/spans.py",
+                "core/__init__.py",
                 "analysis/__init__.py", "analysis/report.py",
                 "kernels/build.py", "kernels/census_fused.py",
                 "kernels/tricode_hist.py", "kernels/pair_codes.py",
