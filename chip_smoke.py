@@ -397,6 +397,47 @@ def item_case(label, chunker, sp, pv, device, orient) -> ItemCase:
                     chunker.space.search_iters, orient)
 
 
+def anchor_record(cases, device, timings) -> dict:
+    """The ``desc_anchors`` kernel at each measured window: its table bit
+    for bit against the plain version and against the table the host
+    built for the window; at the first window (the main path's) its ms
+    beside the plain version's and ``torch.searchsorted``'s on a prebuilt
+    grid.  Bound: the table's writes and one read of ``desc_cum``."""
+    import torch
+    from repro_torch.core.planner import DESC_ANCHOR_STRIDE
+    from repro_torch.kernels import ops
+    for case in cases:
+        dc, host = case.window[2], case.window[4]
+        got = ops.desc_anchors(dc, torch.empty_like(host))
+        require(torch.equal(got, ops.desc_anchors_ref(dc, host.shape[0]))
+                and torch.equal(got, host),
+                f"desc_anchors != plain version or host table at "
+                f"{case.label}")
+    dc, host = cases[0].window[2], cases[0].window[4]
+    num_anchors = host.shape[0]
+    out = torch.empty_like(host)
+    grid = torch.arange(num_anchors, dtype=torch.int32,
+                        device=device) * DESC_ANCHOR_STRIDE
+    nbytes = 4 * (num_anchors + dc.shape[0])
+    b, by = bound_ms(nbytes, 0)
+    rec = dict(
+        windows=[c.label for c in cases], anchors=num_anchors,
+        descs=dc.shape[0],
+        **timings(lambda: ops.desc_anchors(dc, out),
+                  lambda: ops.desc_anchors_ref(dc, num_anchors),
+                  lambda: torch.searchsorted(dc, grid, right=True,
+                                             out_int32=True)),
+        bound_ms=b, bound_by=by, bound_bytes=nbytes)
+    log(f"kernel desc_anchors at {cases[0].label}: anchors {num_anchors} "
+        f"desc_shape {dc.shape[0]}: ms {rec['ms']:.4f} (L2 flushed) "
+        f"warm_ms {rec['warm_ms']:.4f} plain_ms {rec['plain_ms']:.4f} "
+        f"library_ms {rec['library_ms']:.4f} (torch.searchsorted on a "
+        f"prebuilt grid) bound_ms {b:.4f} ({by}, {nbytes} bytes); equal "
+        f"to the plain version and the host table at "
+        f"{', '.join(rec['windows'])}")
+    return rec
+
+
 def measured_windows(g, hub, device, max_items: int, session_k: int):
     """The kernels' measured windows.  For the desc kernel: window 0 of
     the main graph (orient "none"), window 0 of the hub graph (orient
@@ -671,6 +712,7 @@ def kernel_phase(g, hub, part, device, max_items: int, session_k: int,
                                 "lanes", "valid_lanes")},
         windows=[{k: v for k, v in w.items() if k != "bound_ops"}
                  for w in windows],
+        anchors=anchor_record(cases, device, timings),
         batch=batch_record(part, max_items, device, reps, flush, timings)))
 
     # 2. fused host-item kernel, at the same three windows as host items
@@ -1104,8 +1146,9 @@ def census_run(g, device, backend: str, orient: str, max_items,
 def trace_split(prof, device) -> dict:
     """Where a traced run's time went: the engine's host ranges
     (``census.plan``, ``census.window``; seconds), and on the card the
-    desc kernel's launches and summed time and the time any device
-    activity (kernel, copy, memset) was running (ms, union of spans)."""
+    desc kernel's launches and summed time, the ``desc_anchors`` kernel's
+    launches, and the time any device activity (kernel, copy, memset) was
+    running (ms, union of spans)."""
     from torch.autograd import DeviceType
     # a range appears twice, as a host event and as its device-side
     # annotation: only the host event is host time, and only kernels,
@@ -1117,7 +1160,8 @@ def trace_split(prof, device) -> dict:
     split = dict(plan_s=host.get("census.plan", 0.0),
                  partition_s=host.get("census.partition", 0.0),
                  window_s=host.get("census.window", 0.0),
-                 kernel_launches=0, kernel_ms=None, busy_ms=None)
+                 kernel_launches=0, kernel_ms=None, busy_ms=None,
+                 anchor_launches=0)
     if device.type != "cuda":
         return split
     activity = [e for e in prof.events() if e.device_type == DeviceType.CUDA
@@ -1129,6 +1173,8 @@ def trace_split(prof, device) -> dict:
         busy_us += max(0.0, hi - max(lo, reach))
         reach = max(reach, hi)
     split.update(kernel_launches=len(kernels),
+                 anchor_launches=sum("desc_anchors" in e.name
+                                     for e in activity),
                  kernel_ms=sum(e.time_range.elapsed_us()
                                for e in kernels) / 1e3,
                  busy_ms=busy_us / 1e3)
@@ -1138,14 +1184,16 @@ def trace_split(prof, device) -> dict:
 def held_run(label: str, g, device, orient: str, max_items: int,
              w0: int) -> dict:
     """Fused engine run, traced, held to the plain torch engine and to
-    C(n, 3); its desc-kernel launches must equal its window count, in the
-    wrapper's counter and in the trace."""
+    C(n, 3); its desc-kernel and ``desc_anchors`` launches must each equal
+    its window count on the card, in the wrappers' counters and in the
+    trace."""
     import torch
     from repro_torch.kernels import ops
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     before = ops.fused_census_desc_partials.launches
+    tables = ops.desc_anchors.launches
     with torch.profiler.profile(activities=activities) as prof:
         census, st, wall = census_run(g, device, "fused", orient, max_items)
     launches = ops.fused_census_desc_partials.launches - before
@@ -1153,10 +1201,17 @@ def held_run(label: str, g, device, orient: str, max_items: int,
     require(launches == expect,
             f"{label}/{orient}: desc kernel launched {launches} times for "
             f"{st.chunks} windows")
+    tables = ops.desc_anchors.launches - tables
+    require(tables == expect,
+            f"{label}/{orient}: desc_anchors launched {tables} times for "
+            f"{st.chunks} windows")
     split = trace_split(prof, device)
     require(split["kernel_launches"] == expect,
             f"{label}/{orient}: the trace holds {split['kernel_launches']} "
             f"desc kernels for {st.chunks} windows")
+    require(split["anchor_launches"] == expect,
+            f"{label}/{orient}: the trace holds {split['anchor_launches']} "
+            f"desc_anchors kernels for {st.chunks} windows")
     ref, _, ref_wall = census_run(g, device, "torch", orient, max_items)
     require((census == ref).all(),
             f"{label}/{orient}: fused {census.tolist()} != torch "
@@ -1168,7 +1223,8 @@ def held_run(label: str, g, device, orient: str, max_items: int,
     log(f"{label} orient={orient}: windows {st.chunks} W0 {w0} items "
         f"{st.items} desc_shape {st.desc_shape} wall {wall:.3f} s "
         f"({w0 / wall:.4g} pre-prune lanes/s, {st.items / wall:.4g} "
-        f"items/s) desc launches {launches}; torch engine wall "
+        f"items/s) desc launches {launches}, desc_anchors launches "
+        f"{tables}; torch engine wall "
         f"{ref_wall:.3f} s; census {census.tolist()}")
     if device.type == "cuda":
         device_part = (

@@ -353,6 +353,20 @@ def desc_partials_fn(backend: str, search_iters: int, desc_iters: int,
                              histogram_fn=histogram_fn)
 
 
+def desc_anchors_fn(backend: str):
+    """What makes a device-emission dispatch's anchor table for
+    ``backend``: ``build(desc_cum, table) -> anchors``, the table of the
+    window whose padded ``desc_cum`` the device holds.  ``fused`` and
+    ``hist`` write it into ``table`` with the ``desc_anchors`` kernel (its
+    plain version on the CPU); ``torch``, the oracle, computes it in
+    plain torch."""
+    from repro_torch.kernels import ops as kops
+    if backend == "torch":
+        return lambda desc_cum, table: kops.desc_anchors_ref(
+            desc_cum, table.shape[0])
+    return kops.desc_anchors
+
+
 def desc_batch_partials_fn(backend: str, search_iters: int, desc_iters: int,
                            orient: str, prune_self: bool):
     """Megastep counterpart of :func:`desc_partials_fn`: maps the 5 graph

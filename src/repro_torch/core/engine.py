@@ -13,10 +13,12 @@
 ``emit`` picks how chunks reach the device:
 
 * ``emit="device"`` (default): the host ships each chunk as ONE packed
-  buffer of O(pairs) descriptors + anchors
-  (:class:`repro_torch.core.planner.DescriptorWindow`); the device maps
-  every flat item index back to its pair, derives slot/side against the
-  resident CSR and applies the pruning predicate in place.
+  buffer of O(pairs) descriptors
+  (:class:`repro_torch.core.planner.DescriptorWindow`); the device builds
+  the window's anchor table from them (a megastep's rows still carry
+  theirs), maps every flat item index back to its pair, derives
+  slot/side against the resident CSR and applies the pruning predicate
+  in place.
 * ``emit="host"``: emit, prune, pack and upload the O(W) item words in
   numpy — the oracle, and the path of prebuilt plans (:meth:`run_plan`).
 
@@ -87,8 +89,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.census import (
-    BACKENDS, assemble_census, assemble_counts, desc_batch_partials_fn,
-    desc_partials_fn, partials_fn)
+    BACKENDS, assemble_census, assemble_counts, desc_anchors_fn,
+    desc_batch_partials_fn, desc_partials_fn, partials_fn)
 from repro_torch.core.digraph import CompactDigraph, GraphDelta, apply_delta
 from repro_torch.core.faults import FaultError, FaultPlan, poison_result
 from repro_torch.core.incremental import (
@@ -108,8 +110,8 @@ from repro_torch.core.planner import (
     max_pairs_per_window, num_desc_anchors, pad_and_pack, pair_space,
     postprune_pair_counts, split_device_words)
 from repro_torch.core.spans import (
-    EMIT, GRAPH, INSTALL, MERGE, PAIR, PARTITION, PLAN, UPLOAD, WAIT,
-    WINDOW, span, spanned)
+    ANCHORS, EMIT, GRAPH, INSTALL, MERGE, PAIR, PARTITION, PLAN, UPLOAD,
+    WAIT, WINDOW, span, spanned)
 
 #: work-item emission modes: ``device`` streams O(pairs) descriptors and
 #: expands pairs→items on the device (the default); ``host`` materializes
@@ -256,7 +258,9 @@ class EngineStats:
     each device (packed items under host emission, divided across the
     devices when the items are split; the descriptor window under device
     emission, whole on every device when replicated, one private window
-    per device when partitioned).  ``step_compiles`` and
+    per device when partitioned; the JAX package's count, anchor table
+    included, also where the device builds the table and the dispatch
+    ships none).  ``step_compiles`` and
     ``capacity_recompiles`` count jit compilations in the JAX package;
     eager torch compiles nothing per step, so both are always 0.
     """
@@ -318,8 +322,9 @@ class EngineStats:
     #: windows under lock-step) is ``plan_pad_bytes_total``.  Runs that
     #: are not partitioned, and sessions, count the bytes their
     #: dispatches copied (a retried dispatch copies again; a prebuilt
-    #: plan on one device has no dispatch and counts 0), where the JAX
-    #: package leaves 0
+    #: plan on one device has no dispatch and counts 0; a descriptor
+    #: window's anchor table, built on the device, is not copied), where
+    #: the JAX package leaves 0
     plan_upload_bytes_total: int = 0
     plan_pad_bytes_total: int = 0
     #: dispatches issued for the run's windows: one megastep launch per
@@ -783,12 +788,32 @@ def _item_launcher(step, graph, chunk_shape: int):
                               words[chunk_shape:])
 
 
-def _desc_launcher(step, graph, idx: torch.Tensor, num_anchors: int):
+def _anchored(words, table: torch.Tensor, anchors):
+    """A descriptor-window buffer that ships no anchor table
+    (``[num_preprune, desc_pair…, desc_cum…, desc_within0…]``) as the
+    desc step's ``(desc_pair, desc_cum, desc_within0, anchors,
+    num_valid)``, its anchor table built from ``desc_cum`` into ``table``
+    by ``anchors`` (:func:`repro_torch.core.census.desc_anchors_fn`) on
+    the current stream: the ``census.window.anchors`` span.
+
+    The step that reads the table is enqueued next on the same stream,
+    and the next window's table only after it, so one table per launcher
+    (per compute stream) serves every dispatch without a ring."""
+    nv, dp, dc, dw, _ = split_device_words(words, 0)
+    with span(ANCHORS):
+        an = anchors(dc, table)
+    return dp, dc, dw, an, nv
+
+
+def _desc_launcher(step, anchors, graph, idx: torch.Tensor,
+                   num_anchors: int):
     """``launch`` for :func:`_dispatch` over descriptor-window buffers
-    (device emission)."""
+    without anchor tables (device emission): each window's table is built
+    on ``idx``'s device into this launcher's own (:func:`_anchored`)."""
+    table = torch.empty(num_anchors, dtype=torch.int32, device=idx.device)
+
     def launch(words):
-        nv, dp, dc, dw, an = split_device_words(words, num_anchors)
-        return step(*graph, dp, dc, dw, an, nv, idx)
+        return step(*graph, *_anchored(words, table, anchors), idx)
     return launch
 
 
@@ -1253,15 +1278,16 @@ class CensusEngine:
     def _run_stream_desc(self, chunker: PlanChunker, progress,
                          max_items: int | None) -> np.ndarray:
         """Device-emission stream: per chunk the host ships the O(pairs)
-        descriptor window (whole, to every device); the device expands
-        pairs→items against the resident flat-index array, each device
-        its contiguous slice of it.  Bit-identical to :meth:`_run_stream`
+        descriptor window (whole, to every device), each device builds the
+        window's anchor table and expands pairs→items against the
+        resident flat-index array, each device its contiguous slice of
+        it.  Bit-identical to :meth:`_run_stream`
         — every item the plan would prune is a zero contribution of the
         classification masks (see
         :func:`repro_torch.core.census.prune_keep_mask`)."""
         space = chunker.space
         ndev = self.ndev
-        words_len = 1 + 3 * chunker.desc_shape + chunker.num_anchors
+        words_len = 1 + 3 * chunker.desc_shape
         gbytes = replicated_graph_bytes(space)
         self.stats = self._stats(
             orient=space.orient,
@@ -1269,7 +1295,8 @@ class CensusEngine:
             chunks=chunker.num_chunks, chunk_shape=chunker.chunk_shape,
             items=0, peak_plan_bytes=ITEM_BYTES * chunker.chunk_shape,
             emit="device", desc_shape=chunker.desc_shape,
-            # the descriptor buffer goes whole to every device
+            # the descriptor buffer goes whole to every device (as the
+            # JAX package ships it: anchors included)
             plan_upload_bytes=(DESC_BYTES * chunker.desc_shape
                                + 4 * chunker.num_anchors + 4),
             graph_resident_bytes=gbytes, graph_replicated_bytes=gbytes)
@@ -1288,8 +1315,9 @@ class CensusEngine:
                                 space.prune_self)
         pipes = [_Pipeline(ld.device, (words_len,), stream=ld.stream)
                  for ld in lanes]
+        anchors = desc_anchors_fn(self.backend)
         launches = [
-            _desc_launcher(step, graph[ld.device],
+            _desc_launcher(step, anchors, graph[ld.device],
                            idx[ld.device][d * per:(d + 1) * per],
                            chunker.num_anchors)
             for d, ld in enumerate(lanes)]
@@ -1303,7 +1331,8 @@ class CensusEngine:
                 base_asym += ba
                 base_mut += bm
                 with span(WINDOW):
-                    host_words = chunker.descriptors(k).device_words()
+                    host_words = chunker.descriptors(
+                        k, anchors=False).device_words()
                 yield [host_words] * ndev
 
         def landed(k, inter):
@@ -1438,11 +1467,11 @@ class CensusEngine:
             step = desc_partials_fn(self.backend, space.search_iters,
                                     sched.desc_iters, space.orient,
                                     space.prune_self)
-            words_len = 1 + 3 * sched.desc_shape + sched.num_anchors
-            pipes = [_Pipeline(ld.device, (words_len,), stream=ld.stream)
-                     for ld in lanes]
-            launches = [_desc_launcher(step, graphs[s], idx[ld.device],
-                                       sched.num_anchors)
+            anchors = desc_anchors_fn(self.backend)
+            pipes = [_Pipeline(ld.device, (1 + 3 * sched.desc_shape,),
+                               stream=ld.stream) for ld in lanes]
+            launches = [_desc_launcher(step, anchors, graphs[s],
+                                       idx[ld.device], sched.num_anchors)
                         for s, ld in enumerate(lanes)]
 
             def steps():
@@ -2062,7 +2091,8 @@ class EngineSession:
             self._step = desc_partials_fn(
                 engine.backend, self.search_iters, self.desc_iters,
                 orient, prune_self)
-            words = 1 + 3 * self.desc_shape + self.num_anchors
+            self._anchors = desc_anchors_fn(engine.backend)
+            words = 1 + 3 * self.desc_shape
         else:
             self._step = partials_fn(engine.backend, self.search_iters)
             words = 2 * (cs // self.ndev)
@@ -2074,14 +2104,18 @@ class EngineSession:
     def _lane_launch(self, d: int):
         """``launch(words)`` of logical device ``d``: its slice of the
         dispatch's lanes against the resident buffers as they are at
-        launch time (a capacity growth reallocates them)."""
+        launch time (a capacity growth reallocates them); under device
+        emission each window's anchor table is built into the lane's own
+        (:func:`_anchored`)."""
         device = self._lanes[d].device
         per = self.chunk_shape // self.ndev
         if self.emit == "device":
+            table = torch.empty(self.num_anchors, dtype=torch.int32,
+                                device=device)
+
             def launch(words):
-                nv, dp, dc, dw, an = split_device_words(words,
-                                                        self.num_anchors)
-                return self._step(*self._dev[device], dp, dc, dw, an, nv,
+                return self._step(*self._dev[device],
+                                  *_anchored(words, table, self._anchors),
                                   self._idx[device][d * per:(d + 1) * per])
         else:
             def launch(words):
@@ -2096,6 +2130,7 @@ class EngineSession:
         self._dev = {}
         self._idx = None
         self._pipes = None
+        self._launches = None
         self._closed = True
 
     def __enter__(self) -> "EngineSession":
@@ -2263,8 +2298,7 @@ class EngineSession:
             hist, inter, chunk_items = self._run_desc_batches(
                 subset_descriptor_windows(self._space, ids,
                                           self.chunk_shape,
-                                          self.desc_shape,
-                                          self.num_anchors))
+                                          self.desc_shape, 0))
             return (contribution_counts(base_asym, base_mut, hist, inter),
                     int(sum(chunk_items)), chunk_items)
         with span(EMIT, self._spans):
@@ -2329,8 +2363,7 @@ class EngineSession:
         if self.emit == "device":
             hist, inter, chunk_items = self._run_desc_batches(
                 iter_descriptor_windows(space.offsets, cs,
-                                        self.desc_shape,
-                                        self.num_anchors))
+                                        self.desc_shape, 0))
         else:
             hist, inter, chunk_items = self._run_batches(
                 emit_items(space, lo, min(lo + cs, w0))
@@ -2485,6 +2518,7 @@ class PartitionedEngineSession:
         self._dev = [None] * self.ndev
         self._idx = None
         self._pipes = None
+        self._tables = None
         self._closed = True
 
     def __enter__(self) -> "PartitionedEngineSession":
@@ -2565,7 +2599,13 @@ class PartitionedEngineSession:
                 self._step = desc_partials_fn(
                     self.engine.backend, self.search_iters,
                     self.desc_iters, self.orient, self.prune_self)
-                words = 1 + 3 * self.desc_shape + self.num_anchors
+                self._anchors = desc_anchors_fn(self.engine.backend)
+                # one anchor table per shard's compute stream
+                self._tables = [torch.empty(self.num_anchors,
+                                            dtype=torch.int32,
+                                            device=ld.device)
+                                for ld in self._lanes]
+                words = 1 + 3 * self.desc_shape
             else:
                 self._step = partials_fn(self.engine.backend,
                                          self.search_iters)
@@ -2681,10 +2721,12 @@ class PartitionedEngineSession:
     # ---------------------------------------------------------- running
     def _launch(self, s: int, words):
         """Launch one window of shard ``s`` against its resident buffers
-        as they are now (a capacity growth reallocates them)."""
+        as they are now (a capacity growth reallocates them), its anchor
+        table built into the shard's own (:func:`_anchored`)."""
         if self.emit == "device":
-            nv, dp, dc, dw, an = split_device_words(words, self.num_anchors)
-            return self._step(*self._dev[s], dp, dc, dw, an, nv,
+            return self._step(*self._dev[s],
+                              *_anchored(words, self._tables[s],
+                                         self._anchors),
                               self._idx[self._lanes[s].device])
         cs = self.chunk_shape
         return self._step(*self._dev[s], words[:cs], words[cs:])
@@ -2713,12 +2755,10 @@ class PartitionedEngineSession:
         cs = self.chunk_shape
         if self.emit == "device":
             wins = (iter_descriptor_windows(sp.offsets, cs,
-                                            self.desc_shape,
-                                            self.num_anchors)
+                                            self.desc_shape, 0)
                     if pair_ids is None else
                     subset_descriptor_windows(sp, pair_ids, cs,
-                                              self.desc_shape,
-                                              self.num_anchors))
+                                              self.desc_shape, 0))
             stream = ((None, win.device_words())
                       for win in wins if win.num_preprune)
         else:

@@ -160,13 +160,16 @@ class PlanChunker:
             base_asym=int(self._base_asym[k]),
             base_mut=int(self._base_mut[k]))
 
-    def descriptors(self, k: int) -> DescriptorWindow:
+    def descriptors(self, k: int, *, anchors: bool = True
+                    ) -> DescriptorWindow:
         """Chunk ``k`` as a pair-descriptor window (O(pairs-in-chunk)
         memory, no item materialization).  Intra-pair splits surface as
-        the window's ``desc_within0`` offsets."""
+        the window's ``desc_within0`` offsets.  ``anchors=False`` leaves
+        the anchor table to the device (an empty host table)."""
         lo, hi = self._bounds(k)
         return descriptor_window(self.space.offsets, lo, hi,
-                                 self.desc_shape, self.num_anchors)
+                                 self.desc_shape,
+                                 self.num_anchors if anchors else 0)
 
     def bases(self, k: int) -> tuple[int, int]:
         """Chunk ``k``'s additive (base_asym, base_mut) share."""
@@ -278,17 +281,21 @@ class ShardSchedule:
         lo = min(k * self.chunk_shape, total)
         return lo, min(lo + self.chunk_shape, total)
 
-    def descriptors(self, s: int, k: int) -> DescriptorWindow:
-        """Shard ``s``'s descriptor window at step ``k`` (possibly empty)."""
+    def descriptors(self, s: int, k: int, *, anchors: bool = True
+                    ) -> DescriptorWindow:
+        """Shard ``s``'s descriptor window at step ``k`` (possibly empty);
+        ``anchors=False`` leaves the anchor table to the device."""
         lo, hi = self._bounds(s, k)
         return descriptor_window(self.spaces[s].offsets, lo, hi,
-                                 self.desc_shape, self.num_anchors)
+                                 self.desc_shape,
+                                 self.num_anchors if anchors else 0)
 
     def step_words(self, k: int) -> np.ndarray:
         """All shards' step-``k`` windows as one (num_shards, words) int32
-        buffer — the sharded per-step upload of the device-emission path."""
-        return np.stack([self.descriptors(s, k).device_words()
-                         for s in range(self.num_shards)])
+        buffer — the sharded per-step upload of the device-emission path,
+        which leaves the anchor tables to the device."""
+        return np.stack([self.descriptors(s, k, anchors=False)
+                         .device_words() for s in range(self.num_shards)])
 
     def shard_step_items(self, s: int, k: int
                          ) -> tuple[np.ndarray, np.ndarray, int]:

@@ -425,6 +425,7 @@ class DescriptorWindow:
     desc_cum: np.ndarray       #: (desc_shape,) int32, pad DESC_CUM_PAD
     desc_within0: np.ndarray   #: (desc_shape,) int32, pad 0
     anchors: np.ndarray        #: (num_anchors,) int32 item→desc anchors
+    #                            (empty: the device builds them)
 
     @property
     def upload_bytes(self) -> int:
@@ -465,8 +466,10 @@ def descriptor_window(offsets: np.ndarray, lo: int, hi: int,
     descriptor j's pair id is its absolute index), or a subset prefix with
     ``pair_ids`` giving the actual pair ids.  ``num_anchors`` fixes the
     anchor-table shape (:func:`num_desc_anchors` of the dispatch lane
-    count).  O(pairs-in-window + num_anchors) time and memory; boundaries
-    may fall mid-pair.
+    count); 0 builds no table, for a launch that builds it on the device
+    from ``desc_cum`` (``repro_torch.kernels.ops.desc_anchors``), and the
+    window's words then end at ``desc_within0``.  O(pairs-in-window +
+    num_anchors) time and memory; boundaries may fall mid-pair.
     """
     offsets = np.asarray(offsets, dtype=np.int64)
     lo, hi = int(lo), int(hi)
@@ -492,6 +495,7 @@ def descriptor_window(offsets: np.ndarray, lo: int, hi: int,
         cum = np.maximum(starts - lo, 0)
         dc[:nd] = cum
         dw[:nd] = np.maximum(lo - starts, 0)
+    if nd and num_anchors:
         with span(ANCHORS):
             grid = (np.arange(num_anchors, dtype=np.int64)
                     * DESC_ANCHOR_STRIDE)

@@ -12,10 +12,12 @@ for host annotations, never for device work (the profiler mirrors a
 range onto the device's timeline as a user annotation).
 
 Top-level spans of a census: :data:`PLAN`, :data:`PARTITION`,
-:data:`GRAPH`, :data:`WINDOW` (with :data:`ANCHORS` inside it),
-:data:`UPLOAD` and :data:`WAIT`.  Of a session update: :data:`MERGE`,
-:data:`PAIR`, :data:`EMIT` (descriptor windows open :data:`ANCHORS`
-inside it), :data:`INSTALL`, :data:`UPLOAD` and :data:`WAIT`.
+:data:`GRAPH`, :data:`WINDOW`, :data:`ANCHORS` (one per device-emission
+dispatch of one window, at its launch), :data:`UPLOAD` and
+:data:`WAIT`.  Of a session update: :data:`MERGE`, :data:`PAIR`,
+:data:`EMIT`, :data:`ANCHORS` (under device emission), :data:`INSTALL`,
+:data:`UPLOAD` and :data:`WAIT`.  The megastep's rows carry host-built
+tables: there :data:`ANCHORS` opens wherever a row's window is built.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ PARTITION = "census.partition"
 GRAPH = "census.graph"
 #: one window's descriptors or item words (engine runs)
 WINDOW = "census.window"
-#: the anchor table of one descriptor window
+#: the anchor table of one descriptor window: the build's enqueue on
+#: the card (or the plain version on the CPU) at the window's launch
 ANCHORS = "census.window.anchors"
 #: a dispatch's host copy into its pinned buffer and the copy's enqueue
 UPLOAD = "census.upload"

@@ -45,6 +45,7 @@ SIGNATURES = {
     "census_fused_items_probe_launch": ([_P] * 7 + [_I] + [_P] * 5, _I),
     "tricode_hist_launch": ([_P, _P, _I, _P, _P], _I),
     "pair_codes_launch": ([_P, _P, _P, _I, _P, _P], _I),
+    "desc_anchors_launch": ([_P, _I, _P, _I, _P], _I),
     "repro_torch_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -22,7 +22,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.census import batch_real_rows
-from repro_torch.core.planner import DESC_ANCHOR_STRIDE, num_desc_anchors
+from repro_torch.core.planner import (
+    DESC_ANCHOR_STRIDE, DESC_CUM_PAD, num_desc_anchors)
 from repro_torch.kernels import build
 
 #: work items per CUDA block of either kernel (256 threads, 16 items
@@ -262,6 +263,28 @@ def census_fused_desc_batch_kernel(indptr, packed, pair_u, pair_v,
         build.check(lib, err, "census_fused_desc_batch")
         if real < rows:
             out[real:].zero_()
+    return out
+
+
+def desc_anchors_kernel(desc_cum, out) -> torch.Tensor:
+    """Launch ``desc_anchors`` on CUDA tensors: writes the anchor table
+    of the window whose padded ``desc_cum`` is given into ``out`` (its
+    length is the table's) and returns ``out``.  Launches on the current
+    stream and does not synchronise."""
+    device = desc_cum.device
+    ptrs = (build.require_vector("desc_cum", desc_cum, device),
+            build.require_vector("out", out, device))
+    num_anchors = out.shape[0]
+    # every grid point must lie below the padding, so the search never
+    # counts a padding descriptor
+    if DESC_ANCHOR_STRIDE * (num_anchors - 1) >= DESC_CUM_PAD:
+        raise ValueError(f"{num_anchors} anchors reach past int32 items")
+    lib = build.load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.desc_anchors_launch(ptrs[0], desc_cum.shape[0], ptrs[1],
+                                      num_anchors, stream)
+    build.check(lib, err, "desc_anchors")
     return out
 
 

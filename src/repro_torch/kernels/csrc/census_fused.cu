@@ -14,6 +14,10 @@
 //   census_fused_kernel (body _kernel)           -> census_fused_items
 //     host emission: the same classify-and-fold fed packed item words
 //     item_sp = slot << 1 | side, item_pv = pair << 1 | valid.
+// and one kernel that replaces no TPU kernel:
+//   desc_anchors: a descriptor window's anchor table from its desc_cum,
+//     which the JAX package builds with numpy on the host and ships with
+//     every window (see the note above desc_anchors below).
 // The desc kernel resolves and classifies through classify_fold() (the
 // witness gather, the row search, the tricode classification and the
 // histogram fold); the items kernel through classify_fold_lanes(), the
@@ -1035,6 +1039,91 @@ census_fused_items(GraphArrays g, const int* __restrict__ item_sp,
   flush(s.acc, lanes, out);
 }
 
+// desc_anchors: anchors[a] = max(upper_bound(desc_cum, 16 a) - 1, 0), the
+// last descriptor starting at or before item 16 a, over the window's
+// padded desc_cum (live entries rising, then 2^31 - 1, above every grid
+// point, so the search never counts padding and an empty window gives
+// zeros).  It replaces no TPU kernel: the JAX package, and the port
+// before it, built this table on the host (one np.searchsorted over the
+// whole grid, 1,048,578 entries at 2^24 lanes) and shipped it with each
+// window, 4.19 MB of a 4.33 MB upload.
+// What bounds it: the table's writes, 4 B an anchor (4.19 MB, 1.25 us at
+// 3.35 TB/s at 2^24 lanes); desc_cum, at most a few hundred KB, stays in
+// L2, and the lanes of a block search a few neighbouring descriptors.
+// Design: each thread takes kRunAnchors consecutive anchors.  It
+// binary-searches the first and, since the anchors rise, gallops forward
+// from there for the next ones (a step costs about two probes, and a run
+// of equal desc_cum entries, from pairs with no items, costs a log of its
+// length, not its length); it stores the run as one 16-byte word, so a
+// warp's stores are one contiguous 512-byte span.
+constexpr int kAnchorThreads = 256;
+constexpr int kRunAnchors = 4;
+static_assert(kRunAnchors == 4, "a run is stored as one int4");
+
+// First index in [lo, n) whose desc_cum exceeds v, given that every index
+// below lo holds at most v: probes lo, lo + 1, lo + 3, lo + 7, ... until
+// one exceeds v, then bisects the last step.
+__device__ int upper_bound_from(const int* __restrict__ cum, int n, int lo,
+                                long long v) {
+  int hi = n;
+  for (int step = 1; lo < n; step <<= 1) {
+    const int probe = lo + step - 1;
+    if (probe >= n) break;
+    if (__ldg(cum + probe) > v) {
+      hi = probe;
+      break;
+    }
+    lo = probe + 1;
+  }
+  while (lo < hi) {
+    const int mid = lo + ((hi - lo) >> 1);
+    if (__ldg(cum + mid) > v) {
+      hi = mid;
+    } else {
+      lo = mid + 1;
+    }
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(kAnchorThreads)
+desc_anchors(const int* __restrict__ desc_cum, int num_descs,
+             int* __restrict__ anchors, int num_anchors) {
+  const long long a0 =
+      (static_cast<long long>(blockIdx.x) * kAnchorThreads + threadIdx.x) *
+      kRunAnchors;
+  if (a0 >= num_anchors) return;
+  long long v = a0 * kAnchorStride;
+  int lo = 0;
+  int hi = num_descs;
+  while (lo < hi) {
+    const int mid = lo + ((hi - lo) >> 1);
+    if (__ldg(desc_cum + mid) > v) {
+      hi = mid;
+    } else {
+      lo = mid + 1;
+    }
+  }
+  int run[kRunAnchors];
+  run[0] = max(lo - 1, 0);
+#pragma unroll
+  for (int r = 1; r < kRunAnchors; ++r) {
+    v += kAnchorStride;
+    lo = upper_bound_from(desc_cum, num_descs, lo, v);
+    run[r] = max(lo - 1, 0);
+  }
+  int* dst = anchors + a0;
+  if (a0 + kRunAnchors <= num_anchors &&
+      (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    *reinterpret_cast<int4*>(dst) = make_int4(run[0], run[1], run[2], run[3]);
+  } else {
+#pragma unroll
+    for (int r = 0; r < kRunAnchors; ++r) {
+      if (a0 + r < num_anchors) dst[r] = run[r];
+    }
+  }
+}
+
 int num_blocks(int num_items) {
   const long long blocks =
       (static_cast<long long>(num_items) + kBlockItems - 1) / kBlockItems;
@@ -1184,6 +1273,22 @@ int census_fused_items_probe_launch(const int* indptr, const int* packed,
   return launch_items<true>(indptr, packed, pair_u, pair_v, pair_code,
                             item_sp, item_pv, num_items, out, tile_staged,
                             lane_staged, tile_clocks, stream);
+}
+
+// anchors: int32[num_anchors], written in full from desc_cum
+// int32[num_descs] (a descriptor window's padded table).  Returns
+// cudaGetLastError() after the launch.
+int desc_anchors_launch(const int* desc_cum, int num_descs, int* anchors,
+                        int num_anchors, void* stream) {
+  if (num_anchors <= 0) return static_cast<int>(cudaSuccess);
+  const long long threads =
+      (static_cast<long long>(num_anchors) + kRunAnchors - 1) / kRunAnchors;
+  const int blocks =
+      static_cast<int>((threads + kAnchorThreads - 1) / kAnchorThreads);
+  desc_anchors<<<blocks, kAnchorThreads, 0,
+                 static_cast<cudaStream_t>(stream)>>>(desc_cum, num_descs,
+                                                      anchors, num_anchors);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* repro_torch_error_string(int err) {

@@ -25,9 +25,11 @@ pair_codes_ref = ref.pair_codes_ref
 fused_census_partials_ref = ref.fused_census_partials_ref
 fused_census_desc_partials_ref = ref.fused_census_desc_partials_ref
 fused_census_desc_partials_batch_ref = ref.fused_census_desc_partials_batch_ref
+desc_anchors_ref = ref.desc_anchors_ref
 
 __all__ = [
-    "BLOCK_ITEMS", "IDX_PAD", "PACKED_PAD", "fused_census_desc_partials",
+    "BLOCK_ITEMS", "IDX_PAD", "PACKED_PAD", "desc_anchors",
+    "desc_anchors_ref", "fused_census_desc_partials",
     "fused_census_desc_partials_batch",
     "fused_census_desc_partials_batch_ref",
     "fused_census_desc_partials_ref", "fused_census_partials",
@@ -161,11 +163,29 @@ def fused_census_desc_partials_batch(indptr, packed, pair_u, pair_v,
     return out[:, :64], out[:, 64:67]
 
 
+def desc_anchors(desc_cum: torch.Tensor,
+                 out: torch.Tensor) -> torch.Tensor:
+    """Write a descriptor window's anchor table into ``out`` and return
+    it: ``out[a] = max(upper_bound(desc_cum, 16 a) - 1, 0)`` over the
+    window's padded ``desc_cum`` (int32, both 1-D), which equals the
+    table :func:`repro_torch.core.planner.descriptor_window` builds on the
+    host.  On the card one kernel launch on the current stream, which
+    does not synchronise, and none for an empty ``out``; on the CPU the
+    plain version.
+    """
+    if _on_cpu(desc_cum, out):
+        return out.copy_(desc_anchors_ref(desc_cum, out.shape[0]))
+    if out.shape[0]:
+        census_fused.desc_anchors_kernel(desc_cum, out)
+        desc_anchors.launches += 1
+    return out
+
+
 def reset_launch_counts() -> None:
     """Set every wrapper's launch count to 0."""
     for fn in (tricode_histogram, fused_census_partials,
                fused_census_desc_partials, fused_census_desc_partials_batch,
-               pair_codes):
+               pair_codes, desc_anchors):
         fn.launches = 0
 
 

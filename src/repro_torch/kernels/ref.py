@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.core.census import (
     census_partials, census_partials_desc, census_partials_desc_batch)
+from repro_torch.core.planner import DESC_ANCHOR_STRIDE
 
 
 def tricode_histogram_ref(tricode_masked: torch.Tensor) -> torch.Tensor:
@@ -60,3 +61,16 @@ def fused_census_desc_partials_batch_ref(indptr, packed, pair_u, pair_v,
     return census_partials_desc_batch(
         indptr, packed, pair_u, pair_v, pair_code, words_batch, idx,
         search_iters, desc_iters, orient, prune_self, real=real)
+
+
+def desc_anchors_ref(desc_cum: torch.Tensor,
+                     num_anchors: int) -> torch.Tensor:
+    """A descriptor window's ``(num_anchors,)`` int32 anchor table from
+    its padded ``desc_cum``: entry ``a`` is the last descriptor starting
+    at or before item ``16 a`` (``DESC_ANCHOR_STRIDE``), at least 0 --
+    what :func:`repro_torch.core.planner.descriptor_window` builds on the
+    host, entry for entry."""
+    grid = torch.arange(num_anchors, dtype=torch.int32,
+                        device=desc_cum.device) * DESC_ANCHOR_STRIDE
+    found = torch.searchsorted(desc_cum, grid, right=True, out_int32=True)
+    return (found - 1).clamp_(min=0)

@@ -1,6 +1,6 @@
 """The census path's host spans (``repro_torch.core.spans``) under
 ``torch.profiler``: which ranges a run and a session update open, that
-they nest as documented, that every host-seconds field of
+they lie as documented, that every host-seconds field of
 ``EngineStats`` equals its span's range total, and the copied-bytes
 counter ``plan_upload_bytes_total``.
 
@@ -22,6 +22,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import repro_torch as rt
 from repro_torch.core import engine, spans
+from repro_torch.core.planner import DESC_BYTES
 
 torch.set_num_threads(1)
 
@@ -77,15 +78,21 @@ def overlaps(span, others):
     return any(min(e, e2) > max(s, s2) for s2, e2 in others)
 
 
-def check_census_ranges(ranges):
+def shipped_bytes(st):
+    """What a device-emission dispatch copies to each device: the
+    descriptors and the valid-lane count, no anchor table."""
+    return DESC_BYTES * st.desc_shape + 4
+
+
+def check_census_ranges(ranges, dispatches):
     assert CENSUS_SPANS <= set(ranges), sorted(ranges)
     assert all(name.startswith("census.") for name in ranges), sorted(ranges)
     assert len(ranges[spans.WINDOW]) >= 3
-    # the anchor table is built inside its window; the window's upload
-    # and the waits come after it, outside every window
-    assert all(inside(r, ranges[spans.WINDOW])
-               for r in ranges[spans.ANCHORS])
-    for name in (spans.UPLOAD, spans.WAIT, spans.GRAPH):
+    # the anchor table is built at each dispatch's launch, after its
+    # window and its upload: outside every window, once a dispatch; the
+    # upload and the waits come after the window too
+    assert len(ranges[spans.ANCHORS]) == dispatches
+    for name in (spans.ANCHORS, spans.UPLOAD, spans.WAIT, spans.GRAPH):
         assert not any(overlaps(r, ranges[spans.WINDOW])
                        for r in ranges[name]), name
 
@@ -95,7 +102,7 @@ def test_census_opens_its_spans_and_only_census_ranges():
     eng = rt.CensusEngine(device="cpu", emit="device")
     counts, ranges = traced(lambda: eng.run(g, max_items=BUDGET))
     np.testing.assert_array_equal(counts, rt.census_batagelj_mrvar(g))
-    check_census_ranges(ranges)
+    check_census_ranges(ranges, eng.stats.chunks)
     assert len(ranges[spans.UPLOAD]) == len(ranges[spans.WINDOW]) \
         == eng.stats.chunks
 
@@ -107,9 +114,9 @@ def test_census_on_the_card_opens_upload_and_wait(cuda):
     eng.run(g, max_items=BUDGET)                   # builds the kernels
     counts, ranges = traced(lambda: eng.run(g, max_items=BUDGET))
     np.testing.assert_array_equal(counts, rt.census_batagelj_mrvar(g))
-    check_census_ranges(ranges)
     st = eng.stats
-    assert st.plan_upload_bytes_total == st.plan_upload_bytes * st.chunks
+    check_census_ranges(ranges, st.chunks)
+    assert st.plan_upload_bytes_total == shipped_bytes(st) * st.chunks
 
 
 @pytest.mark.parametrize("emit", ["device", "host"])
@@ -135,15 +142,21 @@ def test_session_spans_are_its_stats(emit, index):
         got = getattr(session.stats, FIELDS[name])
         assert got == pytest.approx(total, rel=0.05, abs=1e-3), name
     if emit == "device":
-        assert all(inside(r, ranges[spans.EMIT])
-                   for r in ranges[spans.ANCHORS])
+        # built at each dispatch's launch, outside the window's emission
+        assert len(ranges[spans.ANCHORS]) == session.stats.chunks
+        assert not any(overlaps(r, ranges[spans.EMIT])
+                       for r in ranges[spans.ANCHORS])
 
 
 @pytest.mark.parametrize("layout", ["desc", "desc-replicated-2", "host",
                                     "session"])
 def test_upload_counter_counts_the_copied_bytes(layout):
     """``plan_upload_bytes_total`` is what the dispatches handed the
-    devices: each dispatch's ``plan_upload_bytes`` on every device."""
+    devices, on every device: each host-emission dispatch's
+    ``plan_upload_bytes``, and each device-emission dispatch's
+    descriptors and valid-lane count, whose anchor table the device
+    builds (``plan_upload_bytes`` keeps the JAX package's count, table
+    included)."""
     g = graph()
     devices = rt.default_devices(2, "cpu") if layout.endswith("-2") else None
     eng = (rt.CensusEngine(devices=devices) if devices
@@ -162,8 +175,8 @@ def test_upload_counter_counts_the_copied_bytes(layout):
     dispatches = (sum(1 for c in st.chunk_items if c) if layout == "host"
                   else st.chunks)
     assert dispatches >= 3
-    assert st.plan_upload_bytes_total == (
-        st.plan_upload_bytes * dispatches * st.ndev)
+    per = st.plan_upload_bytes if layout == "host" else shipped_bytes(st)
+    assert st.plan_upload_bytes_total == per * dispatches * st.ndev
 
 
 def test_span_totals_and_spanned_streams():
